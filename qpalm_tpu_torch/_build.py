@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels.
+
+`kernels()` compiles every csrc/*.cu source of this package with nvcc into
+one shared library with a plain C interface, for Hopper (sm_90a), and loads
+it with ctypes.  The library goes to qpalm_tpu_torch/_build/, named by a
+hash of the sources, so an edited source builds anew and an unchanged one
+is built once.  Nothing is built or loaded at import.
+
+Each C entry point launches on the stream it is given, allocates nothing,
+synchronises nothing, and returns cudaGetLastError(); `check_launch` turns
+a nonzero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+# --fmad=false: no contraction of a*b+c into one rounding, so the kernels
+# round as their plain PyTorch twins do (fmaf() calls stay fused)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point -> argument types (pointers and the stream as void*)
+_SIGNATURES = {
+    "qp_chol": [_P, _P, _I, _I, _P],
+    "qp_chol_solve": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "qp_fused_palm": [_P] * 8 + [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "qp_fused_smem_bytes": [_I, _I],
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on "
+                           "PATH or set CUDA_HOME")
+    return str(path)
+
+
+def _library_path() -> Path:
+    cu, cuh = _sources()
+    h = hashlib.sha256()
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libqpalm_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> tuple[Path, str]:
+    """Compile the kernels unless the library for these sources exists.
+    Returns (library path, nvcc's diagnostics; with `verbose` this holds
+    ptxas' register and shared-memory report)."""
+    out = _library_path()
+    if out.exists() and not verbose:
+        return out, ""
+    cu, _ = _sources()
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.cache
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, args in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")

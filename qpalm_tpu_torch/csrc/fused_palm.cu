@@ -1,0 +1,623 @@
+// Kernel K1: T whole P-ALM iterations of a batch of dense convex QPs in one
+// launch, f32, all state on chip.
+//
+// Replaces the Pallas kernel of qpalm_tpu/solver/fused.py (`_make_kernel`'s
+// inner `kernel`, launched per 128-lane block by `fused_chunk`) for its
+// all-on-chip, convex, proximal (or plain) tier: residuals and termination
+// norms, both infeasibility certificates, sigma / y / inner-tolerance
+// updates, the gamma step or boost, Schur assembly M = Q + A'diag(w)A + I/g
+// with its Gershgorin bound, Cholesky and two triangular solves, Qd and Ad,
+// the 26-step Newton/bisection linesearch, and the masked state writes.
+// It computes what fused.py:538-906 computes; the plain twin is
+// qpalm_tpu_torch/solver/fused.py:fused_palm_plain.
+//
+// Design.  The TPU kernel put one problem in each of 128 vector lanes.  Here
+// one block of 256 threads owns one problem, batch first: Q, A, the Schur
+// matrix M and the ~37 state and scratch vectors sit in dynamic shared
+// memory (69 KB at n=64, m=96; three blocks per SM), loaded once and written
+// back once.  A block leaves its loop as soon as its own problem is done,
+// which changes no problem's iteration count.  Every per-problem scalar is
+// computed redundantly by all threads from the same reductions, so control
+// flow is uniform within a block.
+//
+// What bounds it on an H100: not bandwidth (each problem's 40 KB of data is
+// read once for ~100 iterations) and not f32 throughput (~1 MFLOP per
+// iteration), but the chain of dependent block barriers per iteration:
+// about 2n in the Cholesky, 55 reductions in the linesearch and a dozen
+// elsewhere.  Reductions carry several values per barrier and double-buffer
+// their scratch, so each costs one barrier; the triangular solves run in one
+// warp without block barriers; the Schur assembly (the only O(n^2 m) step)
+// uses 4x4 register tiles over float4 shared loads.
+//
+// Numerics.  No fast math.  Reductions are warp butterflies plus a fixed
+// combine of the warp partials, never atomics, so reruns are bit-identical.
+// 1/sqrtf replaces rsqrt (rsqrtf is approximate).  Products with FLT_MIN in
+// the linesearch are flushed to zero as the reference (TPU, XLA) does, and
+// the bisection's sign test is one fused multiply-add.  Masked updates are
+// branches on uniform flags, never multiplications by a 0/1 mask, so a NaN
+// on a masked-off path cannot reach the state.  Padded rows keep their
+// +-1e21 bounds, finite in f32 like QPALM_INFTY = 1e20.
+
+#include <string.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int NT = 256;
+constexpr int NWARP = NT / 32;
+constexpr int RED_K = 12;  // most values one block reduction carries
+constexpr float INFTY = 1e20f;
+
+// scalar-state rows (qpalm_tpu/solver/fused.py:68-70); the kernel leaves
+// the nonconvex and dual-objective rows (15-17) untouched
+enum {
+  GAMMA, EPSA_IN, EPSR_IN, DONE, ITER, PREV_ITER, NO_CHANGE, GAMMA_MAXED,
+  ITER_OUT, GERSH, NB_CHANGED, PRI_NORM, DUA_NORM, STATUS, GAMMA_MAX,
+  SC_ROWS = 18
+};
+
+struct FSet {  // the order of solver/fused.py:_float_settings
+  float eps_abs, eps_rel, eps_pinf, eps_dinf, rho, theta, delta, sigma_max,
+      gamma_upd, e2;
+};
+
+__device__ __forceinline__ float ftz(float v) {
+  return fabsf(v) < FLT_MIN ? 0.0f : v;
+}
+
+// Reduce K per-thread values over the block at once: bit k of max_mask
+// picks a NaN-propagating max, else a sum.  Every thread gets the results.
+// The two scratch halves alternate, so one barrier per call is enough.
+template <int K>
+__device__ __forceinline__ void block_reduce(float (&v)[K], unsigned max_mask,
+                                             float* red, int& parity) {
+  static_assert(K <= RED_K, "too many values for one reduction");
+  float* buf = red + parity * (RED_K * NWARP);
+  parity ^= 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const bool mx = (max_mask >> k) & 1u;
+    float a = v[k];
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+      const float b = __shfl_xor_sync(QP_FULL_MASK, a, o);
+      a = mx ? nmax(a, b) : a + b;
+    }
+    if (lane == 0) buf[k * NWARP + warp] = a;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const bool mx = (max_mask >> k) & 1u;
+    float a = buf[k * NWARP];
+    for (int w = 1; w < NWARP; ++w) {
+      const float b = buf[k * NWARP + w];
+      a = mx ? nmax(a, b) : a + b;
+    }
+    v[k] = a;
+  }
+}
+
+// Hinge sums of the linesearch derivative at tau (fused.py:475-489):
+// a = eta + sum dd over active hinges, b = beta - sum of their offsets.
+__device__ __forceinline__ void ab_at(float tau, float eta, float beta,
+                                      const float* sad, const float* alo,
+                                      const float* ahi, int m, float* red,
+                                      int& rp, float& a, float& b) {
+  float v[2] = {0.0f, 0.0f};
+  for (int i = threadIdx.x; i < m; i += NT) {
+    const float s = sad[i], lo = alo[i], hi = ahi[i];
+    const float st = ftz(s * tau);
+    const bool act1 = (-st - lo) > 0.0f;
+    const bool act2 = (st - hi) > 0.0f;
+    const float dd = s * s;
+    v[0] += (act1 ? dd : 0.0f) + (act2 ? dd : 0.0f);
+    v[1] += (act1 ? -s * lo : 0.0f) + (act2 ? s * hi : 0.0f);
+  }
+  block_reduce<2>(v, 0u, red, rp);
+  a = eta + v[0];
+  b = beta - v[1];
+}
+
+__global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
+    const float* __restrict__ gQ, const float* __restrict__ gA,
+    const float* __restrict__ gq, const float* __restrict__ gbmin,
+    const float* __restrict__ gbmax, const float* __restrict__ gDinv,
+    const float* __restrict__ gEinv, const float* __restrict__ gcinv,
+    float* __restrict__ gnst, float* __restrict__ gmst,
+    float* __restrict__ gsc, const FSet fs, const int n, const int m,
+    const int T, const int inner_max_iter, const int max_iter,
+    const int scaling_on, const int prox) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t pb = blockIdx.x;
+
+  // ---- shared-memory layout (qp_fused_smem_bytes counts it) ----
+  float* Q = sm;
+  float* A = Q + n * n;
+  float* M = A + m * n;
+  float* nv = M + n * n;  // 18 n-vectors; the first 8 are nst's rows
+  float* x = nv;
+  float* x0 = nv + n;
+  float* Qx = nv + 2 * n;
+  float* aty = nv + 3 * n;
+  float* xprev = nv + 4 * n;
+  float* tqd = nv + 5 * n;
+  float* td = nv + 6 * n;
+  float* certx = nv + 7 * n;
+  float* q = nv + 8 * n;
+  float* Dinv = nv + 9 * n;
+  float* d = nv + 10 * n;
+  float* zf = nv + 11 * n;
+  float* Atyh = nv + 12 * n;
+  float* dphi = nv + 13 * n;
+  float* df = nv + 14 * n;
+  float* Qd = nv + 15 * n;
+  float* Qdp = nv + 16 * n;
+  float* rt = nv + 17 * n;
+  float* mv = nv + 18 * n;  // 19 m-vectors; the first 7 are mst's rows
+  float* y = mv;
+  float* Ax = mv + m;
+  float* sig = mv + 2 * m;
+  float* prin = mv + 3 * m;
+  float* actold = mv + 4 * m;
+  float* tad = mv + 5 * m;
+  float* certy = mv + 6 * m;
+  float* bmin = mv + 7 * m;
+  float* bmax = mv + 8 * m;
+  float* Einv = mv + 9 * m;
+  float* yh = mv + 10 * m;
+  float* pri = mv + 11 * m;
+  float* Axys = mv + 12 * m;
+  float* signew = mv + 13 * m;
+  float* w = mv + 14 * m;
+  float* Ad = mv + 15 * m;
+  float* sad = mv + 16 * m;
+  float* alo = mv + 17 * m;
+  float* ahi = mv + 18 * m;
+  float* red = mv + 19 * m;  // 2 * RED_K * NWARP
+
+  // ---- load ----
+  {
+    const float4* gQ4 = reinterpret_cast<const float4*>(gQ + pb * n * n);
+    const float4* gA4 = reinterpret_cast<const float4*>(gA + pb * m * n);
+    float4* Q4 = reinterpret_cast<float4*>(Q);
+    float4* A4 = reinterpret_cast<float4*>(A);
+    for (int e = tid; e < n * n / 4; e += NT) Q4[e] = gQ4[e];
+    for (int e = tid; e < m * n / 4; e += NT) A4[e] = gA4[e];
+  }
+  for (int e = tid; e < 8 * n; e += NT) nv[e] = gnst[pb * 8 * n + e];
+  for (int e = tid; e < 7 * m; e += NT) mv[e] = gmst[pb * 7 * m + e];
+  for (int j = tid; j < n; j += NT) {
+    q[j] = gq[pb * n + j];
+    Dinv[j] = gDinv[pb * n + j];
+  }
+  for (int i = tid; i < m; i += NT) {
+    bmin[i] = gbmin[pb * m + i];
+    bmax[i] = gbmax[pb * m + i];
+    Einv[i] = gEinv[pb * m + i];
+  }
+  const float* scp = gsc + pb * SC_ROWS;
+  float gamma = scp[GAMMA], epsa_in = scp[EPSA_IN], epsr_in = scp[EPSR_IN];
+  float done = scp[DONE], iter = scp[ITER], prev_iter = scp[PREV_ITER];
+  float no_change = scp[NO_CHANGE], gmaxed = scp[GAMMA_MAXED];
+  float iter_out = scp[ITER_OUT], gersh = scp[GERSH];
+  float nbch = scp[NB_CHANGED], pri_norm_s = scp[PRI_NORM];
+  float dua_norm_s = scp[DUA_NORM], status = scp[STATUS];
+  const float gmax = scp[GAMMA_MAX];
+  const float cinv = gcinv[pb];
+  const float cs = scaling_on ? 1.0f / cinv : 1.0f;
+  int rp = 0;  // reduction scratch parity
+  __syncthreads();
+
+  for (int t = 0; t < T && !(done > 0.5f); ++t) {
+    // ---- residuals (iteration.c:24-48) and the m-side norms ----
+    float pri_norm, axz_max, pn_uns, eps_p, oob;
+    {
+      float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int i = tid; i < m; i += NT) {
+        const float si = sig[i], yi = y[i], axi = Ax[i], ei = Einv[i];
+        const float lo = bmin[i], hi = bmax[i];
+        const float axys = axi + yi * (1.0f / si);
+        const float z = fminf(fmaxf(axys, lo), hi);
+        const float p = axi - z;
+        const float yhi = yi + si * p;
+        Axys[i] = axys;
+        pri[i] = p;
+        yh[i] = yhi;
+        const float ev = 1.0f / ei;
+        const float dy = yhi - yi;
+        v[0] = nmax(v[0], fabsf(ei * p));
+        v[1] = nmax(v[1], fabsf(ei * axi));
+        v[2] = nmax(v[2], fabsf(ei * z));
+        v[3] = nmax(v[3], fabsf(p));
+        v[4] = nmax(v[4], fabsf(ev * dy));
+        const bool has_ub = hi < ev * INFTY, has_lb = lo > -ev * INFTY;
+        v[5] += (has_ub ? hi * fmaxf(dy, 0.0f) : 0.0f) +
+                (has_lb ? lo * fminf(dy, 0.0f) : 0.0f);
+      }
+      block_reduce<6>(v, 0x1Fu, red, rp);  // also publishes yh
+      pri_norm = v[0];
+      axz_max = nmax(v[1], v[2]);
+      pn_uns = v[3];
+      eps_p = fs.eps_pinf * v[4];
+      oob = v[5];
+    }
+
+    // ---- A'yh, gradients and the n-side norms (termination.c) ----
+    float dua_norm, dua2_norm, max_norm, atdy_max, eps_d, dxdx, dxQdx, qdx;
+    {
+      float v[10] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f,
+                     0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int j = tid; j < n; j += NT) {
+        float at = 0.0f;
+        for (int i = 0; i < m; ++i) at += A[i * n + j] * yh[i];
+        Atyh[j] = at;
+        const float xj = x[j], x0j = x0[j], qj = q[j], dj = Dinv[j];
+        const float Qxj = Qx[j];
+        float dfj = Qxj + qj;
+        if (prox) dfj = dfj - x0j / gamma;
+        df[j] = dfj;
+        const float dp = dfj + at;
+        dphi[j] = dp;
+        const float ddj = prox ? dp - (xj - x0j) / gamma : dp;
+        v[0] = nmax(v[0], fabsf(dj * ddj));
+        v[1] = nmax(v[1], fabsf(dj * dp));
+        v[2] = nmax(v[2], fabsf(dj * Qxj));
+        v[3] = nmax(v[3], fabsf(dj * qj));
+        v[4] = nmax(v[4], fabsf(dj * at));
+        v[5] = nmax(v[5], fabsf(dj * (at - aty[j])));
+        const float dx = xj - xprev[j];
+        const float ddx = (1.0f / dj) * dx;
+        v[6] = nmax(v[6], fabsf(ddx));
+        v[7] += ddx * ddx;
+        v[8] += dx * tqd[j];
+        v[9] += qj * dx;
+      }
+      block_reduce<10>(v, 0x7Fu, red, rp);
+      dua_norm = v[0] * cinv;
+      dua2_norm = v[1] * cinv;
+      max_norm = nmax(v[2], nmax(v[3], v[4])) * cinv;
+      atdy_max = v[5];
+      eps_d = fs.eps_dinf * v[6];
+      dxdx = v[7];
+      dxQdx = v[8];
+      qdx = v[9];
+    }
+    const float eps_pri = fs.eps_abs + fs.eps_rel * axz_max;
+    const float eps_dua = fs.eps_abs + fs.eps_rel * max_norm;
+    const float eps_dua_in = epsa_in + epsr_in * max_norm;
+    const bool solved = pri_norm < eps_pri && dua_norm < eps_dua;
+    const bool pinf =
+        eps_p > 0.0f && atdy_max <= eps_p && oob <= -eps_p && !solved;
+
+    // ---- dual infeasibility (termination.c:184-240) ----
+    bool viol;
+    {
+      float v[1] = {0.0f};
+      for (int i = tid; i < m; i += NT) {
+        const float ev = 1.0f / Einv[i];
+        const bool has_ub = bmax[i] < ev * INFTY;
+        const bool has_lb = bmin[i] > -ev * INFTY;
+        const float adx = Einv[i] * tad[i];
+        v[0] = nmax(v[0], (has_ub && adx >= eps_d ? 1.0f : 0.0f) +
+                              (has_lb && adx <= -eps_d ? 1.0f : 0.0f));
+      }
+      block_reduce<1>(v, 1u, red, rp);
+      viol = v[0] > 0.5f;
+    }
+    const bool curv = (dxQdx <= -cs * fs.e2 * dxdx) ||
+                      (dxQdx <= cs * fs.e2 * dxdx && qdx <= -cs * eps_d);
+    const bool dinf = eps_d > 0.0f && !viol && curv && !solved && !pinf;
+
+    pri_norm_s = pri_norm;
+    dua_norm_s = dua_norm;
+    if (solved || pinf || dinf) {
+      if (pinf)
+        for (int i = tid; i < m; i += NT)
+          certy[i] = (1.0f / Einv[i]) * (cinv * (yh[i] - y[i]));
+      if (dinf)
+        for (int j = tid; j < n; j += NT)
+          certx[j] = (1.0f / Dinv[j]) * (x[j] - xprev[j]);
+      status = solved ? 1.0f : (pinf ? -3.0f : -4.0f);
+      done = 1.0f;
+      break;
+    }
+    if (!(iter < (float)max_iter)) break;  // no live trip is left
+
+    const bool outer = dua2_norm <= eps_dua_in || no_change >= 3.0f;
+    const bool exhausted = iter == prev_iter + (float)inner_max_iter;
+    const bool b_outer = outer, b_exh = !outer && exhausted;
+    const bool b_inner = !outer && !exhausted, b_sig = b_outer || b_exh;
+    const bool sig_enabled = b_sig && iter_out > 0.0f && pri_norm > eps_pri;
+    const bool check = prox && b_outer && gmaxed < 0.5f && iter_out > 0.0f &&
+                       nbch < 0.5f && pri_norm < eps_pri;
+
+    // ---- sigma update (iteration.c:86-145), outer y, active sets ----
+    float nb2, nact2, nb_inner;
+    {
+      float v[3] = {0.0f, 0.0f, 0.0f};
+      for (int i = tid; i < m; i += NT) {
+        const float si = sig[i], p = pri[i], ao = actold[i];
+        float sn = si;
+        if (sig_enabled && fabsf(p) > fs.theta * fabsf(prin[i]) && ao > 0.5f) {
+          const float mult = fmaxf(1.0f, fs.delta * fabsf(p) / (pn_uns + 1e-6f));
+          sn = fminf(mult * si, fs.sigma_max);
+        }
+        signew[i] = sn;
+        const float yn = b_outer ? yh[i] : y[i];
+        if (prox) {
+          const float axys2 = Ax[i] + yn * (1.0f / sn);
+          const float a2 = (axys2 <= bmin[i] || axys2 >= bmax[i]) ? 1.0f : 0.0f;
+          v[0] += fabsf(a2 - ao);
+          v[1] += a2;
+        }
+        const float act =
+            (Axys[i] <= bmin[i] || Axys[i] >= bmax[i]) ? 1.0f : 0.0f;
+        v[2] += fabsf(act - ao);
+        w[i] = act * sn;
+        y[i] = yn;
+        if (b_sig) {
+          sig[i] = sn;
+          prin[i] = p;
+        }
+        if (b_inner) actold[i] = act;
+      }
+      block_reduce<3>(v, 0u, red, rp);  // also publishes w
+      nb2 = v[0];
+      nact2 = v[1];
+      nb_inner = v[2];
+    }
+
+    // ---- outer update and gamma (qpalm.c:515-644) ----
+    const float epsa_new = b_outer ? fmaxf(fs.eps_abs, fs.rho * epsa_in) : epsa_in;
+    const float epsr_new = b_outer ? fmaxf(fs.eps_rel, fs.rho * epsr_in) : epsr_in;
+    float gamma_new = gamma, gmaxed_new = gmaxed, nbch_new = nbch;
+    if (prox) {
+      const bool boost = check && nb2 < 0.5f;
+      const float boosted =
+          nact2 > 0.5f ? fmaxf(gmax, 1e14f / fmaxf(gersh, 1e-30f)) : 1e12f;
+      const float stepped = gamma < gmax ? fminf(gamma * fs.gamma_upd, gmax) : gamma;
+      gamma_new = b_outer ? (boost ? boosted : stepped) : (b_exh ? stepped : gamma);
+      if (boost && nact2 > 0.5f) gmaxed_new = 1.0f;
+      if (check) nbch_new = fminf(nb2, 1.0f);
+    }
+    if (b_sig) {
+      const float diff = 1.0f / gamma_new - 1.0f / gamma;
+      const bool changed = gamma_new != gamma;
+      for (int j = tid; j < n; j += NT) {
+        if (b_outer) aty[j] = Atyh[j];
+        if (prox) {
+          if (changed) Qx[j] = Qx[j] + diff * x[j];
+          x0[j] = x[j];
+        }
+      }
+    }
+    const float no_change_after = b_sig ? 0.0f : no_change;
+    const float no_change_new =
+        b_inner ? (nbch_new > 0.5f ? 0.0f : no_change_after + 1.0f)
+                : no_change_after;
+    const float nbch_final = b_inner ? fminf(nb_inner, 1.0f) : nbch_new;
+
+    // ---- inner Newton step (qpalm.c:662-678) ----
+    if (b_inner) {
+      for (int j = tid; j < n; j += NT) d[j] = -dphi[j];
+      // M = Q + A' diag(w) A, one 4x4 tile of M per thread and pass
+      const int nq = n >> 2;
+      for (int tile = tid; tile < nq * nq; tile += NT) {
+        const int r0 = (tile / nq) * 4, c0 = (tile % nq) * 4;
+        float acc[4][4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 qr = *reinterpret_cast<const float4*>(Q + (r0 + r) * n + c0);
+          acc[r][0] = qr.x; acc[r][1] = qr.y; acc[r][2] = qr.z; acc[r][3] = qr.w;
+        }
+        for (int i = 0; i < m; ++i) {
+          const float wi = w[i];
+          const float4 ar = *reinterpret_cast<const float4*>(A + i * n + r0);
+          const float4 ac = *reinterpret_cast<const float4*>(A + i * n + c0);
+          const float wa[4] = {wi * ar.x, wi * ar.y, wi * ar.z, wi * ar.w};
+          const float bc[4] = {ac.x, ac.y, ac.z, ac.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[r][c] += wa[r] * bc[c];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          *reinterpret_cast<float4*>(M + (r0 + r) * n + c0) =
+              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      }
+      __syncthreads();
+      // Gershgorin bound of A'WA = M - Q by rows, then M += I / gamma
+      float gersh_new;
+      {
+        const float ginv = prox ? 1.0f / gamma : 0.0f;
+        float v[1] = {0.0f};
+        for (int j = warp; j < n; j += NWARP) {
+          float s = 0.0f;
+          for (int k = lane; k < n; k += 32) s += fabsf(M[j * n + k] - Q[j * n + k]);
+          v[0] = nmax(v[0], warp_sum(s));
+          if (lane == (j & 31)) M[j * n + j] += ginv;
+        }
+        block_reduce<1>(v, 1u, red, rp);  // also publishes M
+        gersh_new = v[0];
+      }
+      chol_upper_inplace(M, rt, n);
+      // R'z = -dphi then R d = z, in warp 0 (z in zf, d in place)
+      if (warp == 0) {
+        for (int j = 0; j < n; ++j) {
+          const float bj = d[j] / M[j * n + j];
+          for (int l = j + 1 + lane; l < n; l += 32) d[l] -= bj * M[j * n + l];
+          if (lane == 0) zf[j] = bj;
+          __syncwarp();
+        }
+        for (int k = n - 1; k >= 0; --k) {
+          float s = 0.0f;
+          for (int l = k + 1 + lane; l < n; l += 32) s += M[k * n + l] * d[l];
+          s = warp_sum(s);
+          if (lane == 0) d[k] = (zf[k] - s) / M[k * n + k];
+          __syncwarp();
+        }
+      }
+      __syncthreads();
+      // Qd (+ d / gamma), Ad, and the linesearch's breakpoints
+      float eta, beta;
+      {
+        float v[2] = {0.0f, 0.0f};
+        for (int j = warp; j < n; j += NWARP) {
+          float s = 0.0f;
+          for (int k = lane; k < n; k += 32) s += Q[j * n + k] * d[k];
+          s = warp_sum(s);
+          if (lane == 0) {
+            Qdp[j] = s;
+            const float qdj = prox ? s + d[j] / gamma : s;
+            Qd[j] = qdj;
+            v[0] += d[j] * qdj;
+            v[1] += d[j] * df[j];
+          }
+        }
+        for (int i = warp; i < m; i += NWARP) {
+          float s = 0.0f;
+          for (int k = lane; k < n; k += 32) s += A[i * n + k] * d[k];
+          s = warp_sum(s);
+          if (lane == 0) {
+            const float sn = signew[i], sq = sqrtf(sn), yn = y[i], axi = Ax[i];
+            Ad[i] = s;
+            sad[i] = sq * s;
+            alo[i] = (yn + sn * (axi - bmin[i])) / sq;
+            ahi[i] = (-yn + sn * (bmax[i] - axi)) / sq;
+          }
+        }
+        block_reduce<2>(v, 0u, red, rp);  // also publishes Qd, Ad, sad...
+        eta = v[0];
+        beta = v[1];
+      }
+
+      // ---- sort-free exact linesearch (fused.py:467-536) ----
+      float tau;
+      {
+        const float tiny = FLT_MIN;
+        float v[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int i = tid; i < m; i += NT) {
+          const float s = sad[i], lo = alo[i], hi = ahi[i], dd = s * s;
+          const float st = ftz(s * tiny);
+          const bool act1 = (-st - lo) > 0.0f, act2 = (st - hi) > 0.0f;
+          v[0] += (act1 ? dd : 0.0f) + (act2 ? dd : 0.0f);
+          v[1] += (act1 ? -s * lo : 0.0f) + (act2 ? s * hi : 0.0f);
+          const bool f1 = -s > 0.0f, f2 = s > 0.0f;
+          v[2] += (f1 ? dd : 0.0f) + (f2 ? dd : 0.0f);
+          v[3] += (f1 ? -s * lo : 0.0f) + (f2 ? s * hi : 0.0f);
+          const float s1 = lo / (-s), s2 = hi / s;
+          v[4] = nmax(v[4], (s1 > 0.0f && s1 < 1e30f) ? s1 : 0.0f);
+          v[5] = nmax(v[5], (s2 > 0.0f && s2 < 1e30f) ? s2 : 0.0f);
+        }
+        block_reduce<6>(v, 0x30u, red, rp);
+        const float a0 = eta + v[0], b0 = beta - v[1];
+        const float a_fin = eta + v[2], b_fin = beta - v[3];
+        const float smax = nmax(v[4], v[5]);
+        const float tau_fin = -b_fin / fmaxf(a_fin, tiny);
+        float hi_t = fmaxf(nmax(smax, tau_fin), 1.0f) * 1.01f + 1.0f;
+        float lo_t = 0.0f;
+        tau = fminf(-b0 / fmaxf(a0, tiny), hi_t);
+        tau = tau > 0.0f ? tau : 0.5f * hi_t;
+        for (int it = 0; it < 26; ++it) {
+          float a, b, pa, pb;
+          ab_at(tau, eta, beta, sad, alo, ahi, m, red, rp, a, b);
+          float prop = -b / fmaxf(a, tiny);
+          const float mid = 0.5f * (lo_t + hi_t);
+          prop = (prop > lo_t && prop < hi_t) ? prop : mid;
+          ab_at(prop, eta, beta, sad, alo, ahi, m, red, rp, pa, pb);
+          const bool pos = fmaf(pa, prop, pb) > 0.0f;
+          lo_t = pos ? lo_t : prop;
+          hi_t = pos ? prop : hi_t;
+          tau = prop;
+        }
+        float a, b;
+        ab_at(tau, eta, beta, sad, alo, ahi, m, red, rp, a, b);
+        const float tau_star = -b / fmaxf(a, tiny);
+        tau = (ftz(a0 * tiny) + b0 > 0.0f) ? -b0 / a0 : tau_star;
+      }
+
+      for (int j = tid; j < n; j += NT) {
+        const float xj = x[j], dj = d[j];
+        xprev[j] = xj;
+        x[j] = xj + tau * dj;
+        Qx[j] = Qx[j] + tau * Qd[j];
+        tqd[j] = tau * Qdp[j];
+        td[j] = tau * dj;
+      }
+      for (int i = tid; i < m; i += NT) {
+        const float adi = Ad[i];
+        Ax[i] = Ax[i] + tau * adi;
+        tad[i] = tau * adi;
+      }
+      gersh = gersh_new;
+    }
+
+    // ---- scalar state; the terminating trip is not counted ----
+    if (b_sig) prev_iter = iter;
+    iter += 1.0f;
+    iter_out += b_sig ? 1.0f : 0.0f;
+    gamma = gamma_new;
+    epsa_in = epsa_new;
+    epsr_in = epsr_new;
+    no_change = no_change_new;
+    gmaxed = gmaxed_new;
+    nbch = nbch_final;
+    __syncthreads();
+  }
+
+  // ---- write back ----
+  __syncthreads();
+  for (int e = tid; e < 8 * n; e += NT) gnst[pb * 8 * n + e] = nv[e];
+  for (int e = tid; e < 7 * m; e += NT) gmst[pb * 7 * m + e] = mv[e];
+  if (tid == 0) {
+    float* s = gsc + pb * SC_ROWS;
+    s[GAMMA] = gamma;
+    s[EPSA_IN] = epsa_in;
+    s[EPSR_IN] = epsr_in;
+    s[DONE] = done;
+    s[ITER] = iter;
+    s[PREV_ITER] = prev_iter;
+    s[NO_CHANGE] = no_change;
+    s[GAMMA_MAXED] = gmaxed;
+    s[ITER_OUT] = iter_out;
+    s[GERSH] = gersh;
+    s[NB_CHANGED] = nbch;
+    s[PRI_NORM] = pri_norm_s;
+    s[DUA_NORM] = dua_norm_s;
+    s[STATUS] = status;
+  }
+}
+
+}  // namespace
+
+extern "C" int qp_fused_smem_bytes(int n, int m) {
+  return (int)(sizeof(float) *
+               (2 * (size_t)n * n + (size_t)m * n + 18 * (size_t)n +
+                19 * (size_t)m + 2 * RED_K * NWARP));
+}
+
+extern "C" int qp_fused_palm(const float* Q, const float* A, const float* q,
+                             const float* bmin, const float* bmax,
+                             const float* Dinv, const float* Einv,
+                             const float* cinv, float* nst, float* mst,
+                             float* sc, const float* fset, int B, int n, int m,
+                             int T, int inner_max_iter, int max_iter,
+                             int scaling_on, int proximal, void* stream) {
+  if (B == 0 || T == 0) return 0;
+  if (n % 4) return (int)cudaErrorInvalidValue;
+  FSet fs;
+  memcpy(&fs, fset, sizeof(FSet));
+  const int smem = qp_fused_smem_bytes(n, m);
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_palm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  fused_palm_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(
+      Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, fs, n, m, T,
+      inner_max_iter, max_iter, scaling_on, proximal);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,1 @@
+"""Solver loops of the port: kernel K1 (the fused P-ALM iteration)."""

@@ -1,0 +1,117 @@
+"""Core data types of the PyTorch port (counterpart of qpalm_tpu/types.py).
+
+`Settings` keeps the reference package's fields and defaults, so a settings
+object moves between the two packages field by field (`settings_from`).
+`QPData` and `ScalingInfo` hold batch-first torch tensors: every field has
+the batch as its leading dimension.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import constants as C
+
+
+@dataclasses.dataclass(frozen=True)
+class Settings:
+    """Solver settings (reference: include/types.h:119-150, defaults
+    constants.h:65-110), field for field those of qpalm_tpu.Settings."""
+
+    max_iter: int = C.MAX_ITER
+    inner_max_iter: int = C.INNER_MAX_ITER
+    eps_abs: float = C.EPS_ABS
+    eps_rel: float = C.EPS_REL
+    eps_abs_in: float = C.EPS_ABS_IN
+    eps_rel_in: float = C.EPS_REL_IN
+    rho: float = C.RHO
+    eps_prim_inf: float = C.EPS_PRIM_INF
+    eps_dual_inf: float = C.EPS_DUAL_INF
+    theta: float = C.THETA
+    delta: float = C.DELTA
+    sigma_max: float = C.SIGMA_MAX
+    sigma_init: float = C.SIGMA_INIT
+    proximal: bool = C.PROXIMAL
+    gamma_init: float = C.GAMMA_INIT
+    gamma_upd: float = C.GAMMA_UPD
+    gamma_max: float = C.GAMMA_MAX
+    scaling: int = C.SCALING
+    nonconvex: bool = C.NONCONVEX
+    warm_start: bool = C.WARM_START
+    verbose: bool = C.VERBOSE
+    print_iter: int = C.PRINT_ITER
+    reset_newton_iter: int = C.RESET_NEWTON_ITER
+    enable_dual_termination: bool = C.ENABLE_DUAL_TERMINATION
+    dual_objective_limit: float = C.DUAL_OBJECTIVE_LIMIT
+    time_limit: float = C.TIME_LIMIT
+    ordering: int = 0
+    factorization_method: int = C.FACTORIZATION_METHOD
+    max_rank_update: int = C.MAX_RANK_UPDATE
+    max_rank_update_fraction: float = C.MAX_RANK_UPDATE_FRACTION
+    max_refine: int = C.MAX_REFINEMENT_ITERATIONS
+    dtype: str = "float64"
+    refine_fp64: bool = False
+    linesearch: str = "auto"
+    cg_tol: float = C.CG_TOL
+    cg_max_iter: int = C.CG_MAX_ITER
+    cg_precond: str = "jacobi"
+    cg_block: int = 64
+    stage_block: int = 0
+    use_fused: str = "auto"
+    unroll: int = 1
+    residuals_fp64: bool = False
+
+    def replace(self, **kw) -> "Settings":
+        return dataclasses.replace(self, **kw)
+
+
+def settings_from(obj) -> Settings:
+    """The port's Settings built from any object carrying the same fields
+    (for example a qpalm_tpu.Settings)."""
+    return Settings(**{f.name: getattr(obj, f.name)
+                       for f in dataclasses.fields(Settings)})
+
+
+class QPData(NamedTuple):
+    """Stacked problem data, batch first.
+
+    minimize 0.5 x'Qx + q'x + c   s.t.  bmin <= A x <= bmax
+    """
+
+    Q: torch.Tensor     # (B, n, n) symmetric
+    A: torch.Tensor     # (B, m, n)
+    q: torch.Tensor     # (B, n)
+    bmin: torch.Tensor  # (B, m)
+    bmax: torch.Tensor  # (B, m)
+    c: torch.Tensor     # (B,)
+
+    @property
+    def n(self) -> int:
+        return self.Q.shape[-1]
+
+    @property
+    def m(self) -> int:
+        return self.A.shape[-2]
+
+
+class ScalingInfo(NamedTuple):
+    """Ruiz equilibration output, batch first."""
+
+    D: torch.Tensor     # (B, n) primal scaling
+    Dinv: torch.Tensor
+    E: torch.Tensor     # (B, m) dual scaling
+    Einv: torch.Tensor
+    c: torch.Tensor     # (B,) cost scaling
+    cinv: torch.Tensor
+
+
+def qpdata_from_numpy(Q, A, q, bmin, bmax, c, device) -> QPData:
+    """Turn stacked numpy arrays (for example the fields of the JAX
+    package's QPData after np.asarray) into the port's QPData on `device`,
+    keeping their dtype."""
+    return QPData(*(torch.as_tensor(np.array(a), device=device)
+                    for a in (Q, A, q, bmin, bmax, c)))

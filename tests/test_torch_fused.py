@@ -1,0 +1,168 @@
+"""Kernel K1 (the fused P-ALM loop) of the PyTorch port: the plain twin
+through solve_batch_fused against qpalm_tpu.solver.fused.solve_batch_fused
+in interpret mode, at the bars of tests/test_fused.py; and the CUDA kernel
+against its plain twin on a card."""
+
+import numpy as np
+import pytest
+import torch
+
+from helpers import random_convex_qp
+from qpalm_tpu_torch import constants as C
+from qpalm_tpu_torch.batch import stack_problems
+from qpalm_tpu_torch.solver import fused as F
+from qpalm_tpu_torch.types import Settings
+
+B = 128  # the reference kernel takes whole 128-lane blocks
+
+
+
+def _primal_infeasible(seed):
+    """a'x >= 1 and a'x <= -0.5 at once, beside a feasible box row."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((3, 3))
+    a = rng.standard_normal(3)
+    A = np.vstack([a, a, rng.standard_normal(3)])
+    return (G @ G.T + 0.5 * np.eye(3), A, rng.standard_normal(3),
+            np.array([1.0, -1e30, -1.0]), np.array([1e30, -0.5, 1.0]))
+
+
+PRIMAL_INFEASIBLE = _primal_infeasible(10)
+# zero Hessian, free variable, descending objective (test_infeasibility.py:64)
+DUAL_INFEASIBLE = (np.zeros((1, 1)), np.zeros((1, 1)), np.array([-1.0]),
+                   np.array([-1e30]), np.array([1e30]))
+
+
+def _settings(scaling=2, **kw):
+    return Settings(dtype="float32", eps_abs=1e-4, eps_rel=1e-4, max_iter=100,
+                    scaling=scaling, max_refine=0, delta=10.0, **kw)
+
+
+def _both(probs, s, x_ws=None, y_ws=None):
+    """(reference outputs, port outputs), each a list of numpy arrays."""
+    import qpalm_tpu
+    from qpalm_tpu.batch import stack_problems as jstack
+    from qpalm_tpu.solver.fused import solve_batch_fused as jsolve
+
+    js = qpalm_tpu.Settings(**{k: getattr(s, k) for k in
+                               ("dtype", "eps_abs", "eps_rel", "max_iter",
+                                "scaling", "max_refine", "delta",
+                                "proximal")})
+    ref = jsolve(jstack(probs, np.float32), js, x_ws=x_ws, y_ws=y_ws,
+                 interpret=True)
+    got = F.solve_batch_fused(stack_problems(probs, np.float32), s,
+                              x_ws=x_ws, y_ws=y_ws)
+    return [np.asarray(a) for a in ref], [a.numpy() for a in got]
+
+
+def _assert_parity(ref, got, min_equal_iters=126):
+    assert np.array_equal(got[2], ref[2])
+    same = got[3] == ref[3]
+    assert same.sum() >= min_equal_iters, np.where(~same)
+    # solutions are compared where both solved in the same count
+    same &= ref[2] == C.QPALM_SOLVED
+    assert np.max(np.abs(got[0] - ref[0])[same]) < 1e-4
+    assert np.max(np.abs(got[1] - ref[1])[same]) < 1e-3
+
+
+@pytest.mark.parametrize("scaling,proximal", [(2, True), (0, True),
+                                              (2, False)])
+def test_plain_twin_matches_reference_kernel(scaling, proximal):
+    pytest.importorskip("jax")
+    probs = [random_convex_qp(16, 24, seed=60 + i, density=0.5)
+             for i in range(B)]
+    ref, got = _both(probs, _settings(scaling, proximal=proximal))
+    assert np.all(ref[2] == C.QPALM_SOLVED)
+    _assert_parity(ref, got)
+
+
+def test_plain_twin_certificates_match_reference_kernel():
+    pytest.importorskip("jax")
+    probs = [PRIMAL_INFEASIBLE, DUAL_INFEASIBLE] + [
+        random_convex_qp(8, 12, seed=160 + i, density=0.5)
+        for i in range(B - 2)]
+    ref, got = _both(probs, _settings(2))
+    assert ref[2][0] == C.QPALM_PRIMAL_INFEASIBLE
+    assert ref[2][1] == C.QPALM_DUAL_INFEASIBLE
+    # an infeasible lane's iterates diverge, so rounding steers its
+    # trajectory: its status, not its iteration count, is held to the
+    # reference (the two lanes fit in the bar's 2-lane allowance)
+    _assert_parity(ref, got)
+    # certificates (termination.c:136-240): A'dy ~ 0 with a negative
+    # support function over the finite bounds; a descent direction along
+    # the free variable
+    Q, A, q, bl, bu = PRIMAL_INFEASIBLE
+    dy = got[6][0, :3].astype(np.float64)
+    assert np.abs(A.T @ dy).max() / np.abs(dy).max() < 1e-4
+    fin_l, fin_u = np.abs(bl) < 1e20, np.abs(bu) < 1e20
+    support = np.sum(np.where(fin_u, bu * np.maximum(dy, 0), 0)
+                     + np.where(fin_l, bl * np.minimum(dy, 0), 0))
+    assert support < 0
+    dx = got[7][1, :1].astype(np.float64)
+    assert dx[0] > 0 and DUAL_INFEASIBLE[2] @ dx < 0
+    assert np.array_equal(got[7][1], ref[7][1])
+
+
+def test_plain_twin_warm_start_matches_reference_kernel():
+    pytest.importorskip("jax")
+    probs = [random_convex_qp(12, 18, seed=70 + i, density=0.5)
+             for i in range(B)]
+    s = _settings(2)
+    ref, _ = _both(probs, s)
+    x0, y0 = ref[0], ref[1]
+    ref2, got2 = _both(probs, s, x_ws=x0, y_ws=y0)
+    assert np.all(got2[2] == C.QPALM_SOLVED)
+    assert np.array_equal(got2[2], ref2[2])
+    # as tests/test_fused.py:113-118: the warm start's Qx is rebuilt with
+    # another f32 summation order, so a lane at the tolerance boundary may
+    # run one more inner cycle; that must stay rare
+    diff = np.abs(got2[3] - ref2[3])
+    assert np.mean(diff > 0) <= 0.05, diff
+    assert got2[3].max() < ref[3].max()
+
+
+def test_out_of_slice_features_raise():
+    probs = [random_convex_qp(4, 6, seed=1)]
+    data = stack_problems(probs, np.float32)
+    for kw in (dict(nonconvex=True), dict(enable_dual_termination=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            F.solve_batch_fused(data, _settings(2, **kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        F.solve_batch_fused(data, _settings(2), chunk=10)
+
+
+def test_plain_twin_reports_max_iter():
+    probs = [random_convex_qp(8, 12, seed=80 + i, density=0.5)
+             for i in range(16)]
+    s = Settings(dtype="float32", eps_abs=1e-12, eps_rel=0.0, max_iter=7,
+                 scaling=2, max_refine=0, delta=10.0)
+    out = F.solve_batch_fused(stack_problems(probs, np.float32), s)
+    assert np.all(out[2].numpy() == C.QPALM_MAX_ITER_REACHED)
+    assert np.all(out[3].numpy() == 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,proximal", [(16, 24, True), (16, 24, False),
+                                          (8, 300, True)])  # m > 256
+def test_cuda_kernel_matches_plain_twin(n, m, proximal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    # a zero Hessian needs the proximal term (test_infeasibility.py:64)
+    head = [PRIMAL_INFEASIBLE] + ([DUAL_INFEASIBLE] if proximal else [])
+    probs = head + [random_convex_qp(n, m, seed=260 + i, density=0.5)
+                    for i in range(64 - len(head))]
+    data = stack_problems(probs, np.float32, device="cuda")
+    s = _settings(2, proximal=proximal)
+    before = F.fused_palm.launches
+    got = [a.cpu().numpy() for a in F.solve_batch_fused(data, s)]
+    assert F.fused_palm.launches == before + 1
+    sd, scal, st = F._prepare(data, s)
+    plain = [a.cpu().numpy() for a in F._finish(
+        sd, scal, F.fused_palm_plain(sd, scal, st, s.max_iter, s))]
+    assert np.array_equal(got[2], plain[2])
+    same = got[3] == plain[3]
+    assert same.sum() >= 60
+    assert np.max(np.abs(got[0] - plain[0])[same]) < 1e-4
+    again = [a.cpu().numpy() for a in F.solve_batch_fused(data, s)]
+    for a, b in zip(got, again):
+        assert np.array_equal(a, b)  # no atomics: bit-identical reruns

@@ -1,0 +1,57 @@
+"""The PyTorch port imports neither jax nor the JAX package, and keeps the
+reference's settings."""
+
+import ast
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_MODULES = [
+    "qpalm_tpu_torch", "qpalm_tpu_torch.batch", "qpalm_tpu_torch.scaling",
+    "qpalm_tpu_torch.linalg.chol", "qpalm_tpu_torch.solver.fused",
+    "qpalm_tpu_torch.polish_device", "qpalm_tpu_torch.referee",
+    "qpalm_tpu_torch.workloads", "qpalm_tpu_torch.precision",
+]
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in PORT_MODULES)
+            + "bad = [k for k in sys.modules if k == 'jax' or "
+              "k.startswith(('jax.', 'qpalm_tpu.')) or k == 'qpalm_tpu']\n"
+              "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    [*(ROOT / "qpalm_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_sources_import_no_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "qpalm_tpu"), \
+                (path, name)
+
+
+def test_settings_defaults_match_reference():
+    pytest.importorskip("jax")
+    import qpalm_tpu
+    from qpalm_tpu_torch import Settings, settings_from
+
+    ref = dataclasses.asdict(qpalm_tpu.Settings())
+    assert dataclasses.asdict(Settings()) == ref
+    custom = qpalm_tpu.Settings(eps_abs=5e-5, max_iter=96, scaling=2,
+                                delta=10.0, dtype="float32")
+    assert dataclasses.asdict(settings_from(custom)) == \
+        dataclasses.asdict(custom)
