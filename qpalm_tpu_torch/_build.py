@@ -35,7 +35,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "qp_chol": [_P, _P, _I, _I, _P],
     "qp_chol_solve": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "qp_fused_palm": [_P] * 8 + [_P, _P, _P, _P] + [_I] * 8 + [_P],
+    "qp_fused_palm": [_P] * 8 + [_P, _P, _P, _P] + [_I] * 10 + [_P],
     "qp_fused_smem_bytes": [_I, _I],
 }
 

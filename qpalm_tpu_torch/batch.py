@@ -1,18 +1,31 @@
-"""Padding and stacking of problem batches (counterpart of
-qpalm_tpu/api.py:30-65 and qpalm_tpu/batch.py:206-244).
+"""Batched QPALM front end (counterpart of qpalm_tpu/batch.py and the
+padding of qpalm_tpu/api.py:30-65).
 
-The padding runs in numpy exactly as in the reference; only the stacked
-result becomes torch tensors, on `device`.
+    solve_batch / solve_many
+      -> stack_problems                  numpy padding, tensors on `device`
+      -> [nonconvex] solver.nonconvex.batch_gamma_pins   LOBPCG on scaled Q
+      -> _fused_eligible                 dtype, settings, shared-memory plan
+      -> solver.fused.solve_batch_fused  kernel K1 (its plain twin on a CPU)
+      -> BatchResult                     objective on the unscaled data
+
+The padding runs in numpy exactly as in the reference.  Every batch goes to
+the fused solve: the general solver loop of qpalm_tpu/solver/core.py is not
+ported, so a configuration the kernel does not take raises
+NotImplementedError naming its ROADMAP.md item, and nothing falls back.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .types import QPData
+from . import constants as C
+from .linalg.chol import SMEM_LIMIT
+from .solver.fused import fused_smem_bytes, solve_batch_fused
+from .solver.nonconvex import batch_gamma_pins
+from .types import QPData, Settings
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -89,3 +102,217 @@ def stack_problems(
     arrays = (np.stack(Qs), np.stack(As), np.stack(qs), np.stack(bls),
               np.stack(bus), np.asarray(cs, dtype))
     return QPData(*(torch.from_numpy(a).to(device) for a in arrays))
+
+
+def bucket_indices(sizes: Sequence[tuple], pad_multiple: int = 8) -> dict:
+    """Group problem indices by padded (n_pad, m_pad) bucket, so that a
+    heterogeneous sweep runs one batch per bucket."""
+    buckets: dict = {}
+    for i, (n, m) in enumerate(sizes):
+        key = (_round_up(n, pad_multiple), _round_up(max(m, 1), pad_multiple))
+        buckets.setdefault(key, []).append(i)
+    return buckets
+
+
+class BatchResult(NamedTuple):
+    """Stacked per-problem results (leading axis = batch), tensors on the
+    batch's device."""
+
+    x: torch.Tensor  # (B, n_pad) unscaled primal solutions
+    y: torch.Tensor  # (B, m_pad) unscaled dual solutions
+    status: torch.Tensor  # (B,) int32 status codes (constants.QPALM_*)
+    iterations: torch.Tensor  # (B,) int32
+    objective: torch.Tensor  # (B,)
+    pri_res_norm: torch.Tensor  # (B,)
+    dua_res_norm: torch.Tensor  # (B,)
+
+    @property
+    def solved(self) -> torch.Tensor:
+        return self.status == C.QPALM_SOLVED
+
+    def iteration_histogram(self, bins=10):
+        """Per-problem iteration histogram (counts, edges): the lockstep
+        straggler diagnostic."""
+        return np.histogram(self.iterations.cpu().numpy(), bins=bins)
+
+
+def _not_fused(settings: Settings, n_pad: int, m_pad: int,
+               device) -> Optional[str]:
+    """Why kernel K1 cannot take this batch, naming the ROADMAP.md item
+    that would; None when it can.  The rules for dtype, factorization, time
+    limit, refinement and f64 residuals are the reference's
+    (qpalm_tpu/batch.py:152-163); the shape rule is K1's shared-memory plan
+    on the card, applied to the plain twin as well so that both devices
+    take the same batches."""
+    general = "the general solver loop is not ported yet (ROADMAP.md, " \
+        "section 1 item 3)"
+    if settings.use_fused == "never":
+        return f"use_fused='never': {general}"
+    if torch.device(device).type not in ("cpu", "cuda"):
+        return f"device {device}: the port runs on CPU and CUDA tensors only"
+    rules = (
+        (settings.dtype == "float32", f"dtype {settings.dtype!r}"),
+        (settings.factorization_method in (
+            C.FACTORIZE_SCHUR, C.FACTORIZE_KKT_OR_SCHUR),
+         f"factorization_method {settings.factorization_method}"),
+        (settings.time_limit >= C.QPALM_INFTY, "a time_limit"),
+        (settings.max_refine == 0, f"max_refine {settings.max_refine}"),
+        (not settings.residuals_fp64, "residuals_fp64"),
+    )
+    for ok, what in rules:
+        if not ok:
+            return f"{what} needs {general}"
+    need = fused_smem_bytes(n_pad, m_pad)
+    if n_pad % 4 or need > SMEM_LIMIT:
+        return (f"n_pad={n_pad}, m_pad={m_pad} needs {need} bytes of shared "
+                f"memory (limit {SMEM_LIMIT}, n_pad a multiple of 4): the "
+                "streaming tier of K1 is not ported yet (ROADMAP.md, "
+                "section 2, K1 tiers)")
+    return None
+
+
+def _fused_eligible(settings: Settings, n_pad: int, m_pad: int,
+                    device) -> bool:
+    """Route a batch through kernel K1 (its plain twin for CPU tensors)?
+    `Settings.use_fused` "never" refuses, "always" raises ValueError on a
+    batch the kernel cannot take, "auto" decides."""
+    why = _not_fused(settings, n_pad, m_pad, device)
+    if settings.use_fused == "always" and why is not None:
+        raise ValueError("use_fused='always' but the configuration is not "
+                         f"fused-kernel eligible: {why}")
+    return why is None
+
+
+def _objective(data: QPData, x: torch.Tensor) -> torch.Tensor:
+    """0.5 x'Qx + q'x + c per problem, on the unscaled data."""
+    Qx = torch.matmul(data.Q, x[..., None])[..., 0]
+    return 0.5 * (x * Qx).sum(-1) + (data.q * x).sum(-1) + data.c
+
+
+def solve_batch(
+    problems: Sequence[tuple],
+    settings: Optional[Settings] = None,
+    x0: Optional[Sequence] = None,
+    y0: Optional[Sequence] = None,
+    pad_multiple: int = 8,
+    device="cuda",
+    chunk: int = 0,
+    **settings_kw,
+) -> BatchResult:
+    """Solve a batch of QPs given as (Q, A, q, bmin, bmax[, c]) tuples on
+    `device` ("cuda": kernel K1; "cpu": its plain twin).
+
+    All problems are padded to one shared shape; warm starts (`x0`, `y0`)
+    are all-or-none.  For `Settings(nonconvex=True)` each problem's minimum
+    eigenvalue is estimated with a batched LOBPCG and gamma is pinned per
+    problem (reference: nonconvex.c:171-183); problems that turn out convex
+    keep the default proximal schedule.  `chunk` > 0 runs the kernel in
+    launches of that many iterations with a host early exit between them.
+    """
+    if settings is None:
+        settings = Settings(**settings_kw)
+    elif settings_kw:
+        settings = settings.replace(**settings_kw)
+    dtype = np.dtype(settings.dtype)
+    data = stack_problems(problems, dtype, pad_multiple, device=device)
+    B, n_pad = data.q.shape
+    m_pad = data.bmin.shape[1]
+    if not _fused_eligible(settings, n_pad, m_pad, data.q.device):
+        raise NotImplementedError(
+            _not_fused(settings, n_pad, m_pad, data.q.device))
+
+    x_ws = y_ws = None
+    if x0 is not None or y0 is not None:
+        x_ws = np.zeros((B, n_pad), dtype)
+        y_ws = np.zeros((B, m_pad), dtype)
+        for i, p in enumerate(problems):
+            ni = _densify(p[0]).shape[0]
+            mi = _densify(p[1]).shape[0]
+            if x0 is not None:
+                x_ws[i, :ni] = np.asarray(x0[i], float).ravel()
+            if y0 is not None:
+                y_ws[i, :mi] = np.asarray(y0[i], float).ravel()
+
+    gamma_init = gamma_max = None
+    if settings.nonconvex:
+        gamma_init, gamma_max = batch_gamma_pins(data, settings)
+        settings = settings.replace(proximal=True)
+
+    x, y, status, iters, prn, dan, _, _ = solve_batch_fused(
+        data, settings.replace(verbose=False), x_ws=x_ws, y_ws=y_ws,
+        chunk=chunk, gamma_init=gamma_init, gamma_max=gamma_max)
+    return BatchResult(x=x, y=y, status=status, iterations=iters,
+                       objective=_objective(data, x), pri_res_norm=prn,
+                       dua_res_norm=dan)
+
+
+class ManyResult(NamedTuple):
+    """Results of a heterogeneous sweep: every array is rectangular, padded
+    to the largest bucket; `n`/`m` carry each problem's true sizes so
+    `result.x[i, :result.n[i]]` is problem i's solution."""
+
+    x: np.ndarray  # (B, max_n_pad) zero-padded primal solutions
+    y: np.ndarray  # (B, max_m_pad) zero-padded dual solutions
+    status: np.ndarray  # (B,) int32
+    iterations: np.ndarray  # (B,) int32
+    objective: np.ndarray  # (B,)
+    pri_res_norm: np.ndarray  # (B,)
+    dua_res_norm: np.ndarray  # (B,)
+    n: np.ndarray  # (B,) true variable counts
+    m: np.ndarray  # (B,) true constraint counts
+
+    @property
+    def solved(self) -> np.ndarray:
+        return self.status == C.QPALM_SOLVED
+
+
+def solve_many(
+    problems: Sequence[tuple],
+    settings: Optional[Settings] = None,
+    pad_multiple: int = 8,
+    escalate: bool = False,
+    device="cuda",
+    **settings_kw,
+) -> ManyResult:
+    """Solve a heterogeneous problem list: bucket by padded shape, run one
+    batch per bucket, scatter the results back into input order (numpy).
+    `escalate=True` adds the f32 -> f64 straggler re-solve, which is not
+    ported yet (solve_batch_escalate)."""
+    if escalate:
+        solve_batch_escalate(problems, settings)
+    if settings is None:
+        settings = Settings(**settings_kw)
+    elif settings_kw:
+        settings = settings.replace(**settings_kw)
+    sizes = [(_densify(p[0]).shape[0], _densify(p[1]).shape[0])
+             for p in problems]
+    B = len(problems)
+    max_np = max(_round_up(n, pad_multiple) for n, _ in sizes)
+    max_mp = max(_round_up(max(m, 1), pad_multiple) for _, m in sizes)
+    x = np.zeros((B, max_np))
+    y = np.zeros((B, max_mp))
+    scal = {
+        f: np.zeros((B,), np.int32 if f in ("status", "iterations") else float)
+        for f in ("status", "iterations", "objective", "pri_res_norm",
+                  "dua_res_norm")
+    }
+    for idxs in bucket_indices(sizes, pad_multiple).values():
+        res = solve_batch([problems[i] for i in idxs], settings,
+                          pad_multiple=pad_multiple, device=device)
+        xb = res.x.cpu().numpy()
+        yb = res.y.cpu().numpy()
+        x[idxs, :xb.shape[1]] = xb
+        y[idxs, :yb.shape[1]] = yb
+        for f in scal:
+            scal[f][idxs] = getattr(res, f).cpu().numpy()
+    return ManyResult(x=x, y=y, n=np.asarray([s[0] for s in sizes], np.int32),
+                      m=np.asarray([s[1] for s in sizes], np.int32), **scal)
+
+
+def solve_batch_escalate(problems, settings=None, *args, **kwargs):
+    """The two-pass batch solve of qpalm_tpu/batch.py:416-467 (an f32 pass,
+    then an f64 re-solve of the lanes that did not solve).  Not ported yet:
+    its second pass runs the general solver loop."""
+    raise NotImplementedError(
+        "solve_batch_escalate is not ported yet: its f64 re-solve runs the "
+        "general solver loop (ROADMAP.md, section 1 items 3 and 7)")

@@ -1,15 +1,19 @@
-// Kernel K1: T whole P-ALM iterations of a batch of dense convex QPs in one
-// launch, f32, all state on chip.
+// Kernel K1: T whole P-ALM iterations of a batch of dense QPs in one launch,
+// f32, all state on chip.
 //
 // Replaces the Pallas kernel of qpalm_tpu/solver/fused.py (`_make_kernel`'s
 // inner `kernel`, launched per 128-lane block by `fused_chunk`) for its
-// all-on-chip, convex, proximal (or plain) tier: residuals and termination
-// norms, both infeasibility certificates, sigma / y / inner-tolerance
-// updates, the gamma step or boost, Schur assembly M = Q + A'diag(w)A + I/g
-// with its Gershgorin bound, Cholesky and two triangular solves, Qd and Ad,
-// the 26-step Newton/bisection linesearch, and the masked state writes.
-// It computes what fused.py:538-906 computes; the plain twin is
-// qpalm_tpu_torch/solver/fused.py:fused_palm_plain.
+// all-on-chip tier: residuals and termination norms, both infeasibility
+// certificates, sigma / y / inner-tolerance updates, dual-objective
+// termination (a Cholesky of Q on outer trips), the gamma step or boost
+// (convex) or the eps_k ladder under per-problem gamma pins (nonconvex),
+// Schur assembly M = Q + A'diag(w)A + I/g with its Gershgorin bound,
+// Cholesky and two triangular solves, Qd and Ad, the 26-step
+// Newton/bisection linesearch, and the masked state writes.  It computes
+// what fused.py:538-906 computes; the plain twin is
+// qpalm_tpu_torch/solver/fused.py:fused_palm_plain.  Every per-problem value
+// that lives across iterations is in nst, mst or sc, so T-iteration launches
+// in a row (host chunking) resume exactly.
 //
 // Design.  The TPU kernel put one problem in each of 128 vector lanes.  Here
 // one block of 256 threads owns one problem, batch first: Q, A, the Schur
@@ -49,17 +53,17 @@ constexpr int NWARP = NT / 32;
 constexpr int RED_K = 12;  // most values one block reduction carries
 constexpr float INFTY = 1e20f;
 
-// scalar-state rows (qpalm_tpu/solver/fused.py:68-70); the kernel leaves
-// the nonconvex and dual-objective rows (15-17) untouched
+// scalar-state rows (qpalm_tpu/solver/fused.py:68-70)
 enum {
   GAMMA, EPSA_IN, EPSR_IN, DONE, ITER, PREV_ITER, NO_CHANGE, GAMMA_MAXED,
   ITER_OUT, GERSH, NB_CHANGED, PRI_NORM, DUA_NORM, STATUS, GAMMA_MAX,
-  SC_ROWS = 18
+  EPSK_ABS, EPSK_REL, COBJ, SC_ROWS
 };
+static_assert(SC_ROWS == 18, "the reference's sc has 18 rows");
 
 struct FSet {  // the order of solver/fused.py:_float_settings
   float eps_abs, eps_rel, eps_pinf, eps_dinf, rho, theta, delta, sigma_max,
-      gamma_upd, e2;
+      gamma_upd, e2, dual_limit;
 };
 
 __device__ __forceinline__ float ftz(float v) {
@@ -121,6 +125,28 @@ __device__ __forceinline__ void ab_at(float tau, float eta, float beta,
   b = beta - v[1];
 }
 
+// R'z = d then R x = z with the upper factor R in M, in warp 0 only: the
+// forward pass in saxpy form over the rows of R (z in zf), the backward one
+// by inner products; x overwrites d.  The caller synchronises after.
+__device__ __forceinline__ void chol_solve_warp(const float* M, float* d,
+                                                float* zf, int n) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= 32) return;
+  for (int j = 0; j < n; ++j) {
+    const float bj = d[j] / M[j * n + j];
+    for (int l = j + 1 + lane; l < n; l += 32) d[l] -= bj * M[j * n + l];
+    if (lane == 0) zf[j] = bj;
+    __syncwarp();
+  }
+  for (int k = n - 1; k >= 0; --k) {
+    float s = 0.0f;
+    for (int l = k + 1 + lane; l < n; l += 32) s += M[k * n + l] * d[l];
+    s = warp_sum(s);
+    if (lane == 0) d[k] = (zf[k] - s) / M[k * n + k];
+    __syncwarp();
+  }
+}
+
 __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
     const float* __restrict__ gQ, const float* __restrict__ gA,
     const float* __restrict__ gq, const float* __restrict__ gbmin,
@@ -129,7 +155,8 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
     float* __restrict__ gnst, float* __restrict__ gmst,
     float* __restrict__ gsc, const FSet fs, const int n, const int m,
     const int T, const int inner_max_iter, const int max_iter,
-    const int scaling_on, const int prox) {
+    const int scaling_on, const int prox, const int nonconvex,
+    const int enable_dual) {
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t pb = blockIdx.x;
@@ -206,7 +233,8 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
   float iter_out = scp[ITER_OUT], gersh = scp[GERSH];
   float nbch = scp[NB_CHANGED], pri_norm_s = scp[PRI_NORM];
   float dua_norm_s = scp[DUA_NORM], status = scp[STATUS];
-  const float gmax = scp[GAMMA_MAX];
+  float epsk_abs = scp[EPSK_ABS], epsk_rel = scp[EPSK_REL];
+  const float gmax = scp[GAMMA_MAX], cobj = scp[COBJ];
   const float cinv = gcinv[pb];
   const float cs = scaling_on ? 1.0f / cinv : 1.0f;
   int rp = 0;  // reduction scratch parity
@@ -332,8 +360,9 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
     const bool b_outer = outer, b_exh = !outer && exhausted;
     const bool b_inner = !outer && !exhausted, b_sig = b_outer || b_exh;
     const bool sig_enabled = b_sig && iter_out > 0.0f && pri_norm > eps_pri;
-    const bool check = prox && b_outer && gmaxed < 0.5f && iter_out > 0.0f &&
-                       nbch < 0.5f && pri_norm < eps_pri;
+    // the boost; a nonconvex solve never boosts (its gamma is pinned)
+    const bool check = prox && !nonconvex && b_outer && gmaxed < 0.5f &&
+                       iter_out > 0.0f && nbch < 0.5f && pri_norm < eps_pri;
 
     // ---- sigma update (iteration.c:86-145), outer y, active sets ----
     float nb2, nact2, nb_inner;
@@ -371,11 +400,51 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
       nb_inner = v[2];
     }
 
+    // ---- dual-objective termination on outer trips (fused.py:683-710,
+    // iteration.c:272-299): dobj from v = Q^-1 g, g = A'yh + q, by the
+    // in-place Cholesky of Q in M, which the Newton step rebuilds anyway.
+    // A Q that is not PD gives NaN, and a NaN dobj never terminates. ----
+    bool dual_term = false;
+    if (enable_dual && b_outer) {
+      {
+        const float4* Q4 = reinterpret_cast<const float4*>(Q);
+        float4* M4 = reinterpret_cast<float4*>(M);
+        for (int e = tid; e < n * n / 4; e += NT) M4[e] = Q4[e];
+      }
+      for (int j = tid; j < n; j += NT) d[j] = Atyh[j] + q[j];
+      __syncthreads();
+      chol_upper_inplace(M, rt, n);
+      chol_solve_warp(M, d, zf, n);
+      __syncthreads();
+      float v[2] = {0.0f, 0.0f};
+      for (int j = tid; j < n; j += NT) v[0] += (Atyh[j] + q[j]) * d[j];
+      for (int i = tid; i < m; i += NT) {
+        const float yi = yh[i];
+        v[1] += yi > 0.0f ? yi * bmax[i] : yi * bmin[i];
+      }
+      block_reduce<2>(v, 0u, red, rp);
+      const float dobj = (-0.5f * v[0] - v[1]) * cinv + cobj;
+      dual_term = isfinite(dobj) && dobj > fs.dual_limit;
+    }
+
     // ---- outer update and gamma (qpalm.c:515-644) ----
     const float epsa_new = b_outer ? fmaxf(fs.eps_abs, fs.rho * epsa_in) : epsa_in;
     const float epsr_new = b_outer ? fmaxf(fs.eps_rel, fs.rho * epsr_in) : epsr_in;
     float gamma_new = gamma, gmaxed_new = gmaxed, nbch_new = nbch;
-    if (prox) {
+    bool x0_moves = prox && b_sig;
+    if (nonconvex) {
+      // gamma pinned per problem (nonconvex.c:171-183): the proximal centre
+      // moves only once pri_res meets its own shrinking eps_k ladder
+      // (qpalm.c:586-609); exhausted trips still step gamma to its cap
+      const float eps_k = epsk_abs + epsk_rel * axz_max;
+      x0_moves = b_outer && pri_norm < eps_k;
+      if (x0_moves) {
+        epsk_abs = fmaxf(fs.eps_abs, fs.rho * epsk_abs);
+        epsk_rel = fmaxf(fs.eps_rel, fs.rho * epsk_rel);
+      }
+      const float stepped = gamma < gmax ? fminf(gamma * fs.gamma_upd, gmax) : gamma;
+      gamma_new = b_exh ? stepped : gamma;
+    } else if (prox) {
       const bool boost = check && nb2 < 0.5f;
       const float boosted =
           nact2 > 0.5f ? fmaxf(gmax, 1e14f / fmaxf(gersh, 1e-30f)) : 1e12f;
@@ -389,10 +458,8 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
       const bool changed = gamma_new != gamma;
       for (int j = tid; j < n; j += NT) {
         if (b_outer) aty[j] = Atyh[j];
-        if (prox) {
-          if (changed) Qx[j] = Qx[j] + diff * x[j];
-          x0[j] = x[j];
-        }
+        if (changed) Qx[j] = Qx[j] + diff * x[j];
+        if (x0_moves) x0[j] = x[j];
       }
     }
     const float no_change_after = b_sig ? 0.0f : no_change;
@@ -446,22 +513,7 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
         gersh_new = v[0];
       }
       chol_upper_inplace(M, rt, n);
-      // R'z = -dphi then R d = z, in warp 0 (z in zf, d in place)
-      if (warp == 0) {
-        for (int j = 0; j < n; ++j) {
-          const float bj = d[j] / M[j * n + j];
-          for (int l = j + 1 + lane; l < n; l += 32) d[l] -= bj * M[j * n + l];
-          if (lane == 0) zf[j] = bj;
-          __syncwarp();
-        }
-        for (int k = n - 1; k >= 0; --k) {
-          float s = 0.0f;
-          for (int l = k + 1 + lane; l < n; l += 32) s += M[k * n + l] * d[l];
-          s = warp_sum(s);
-          if (lane == 0) d[k] = (zf[k] - s) / M[k * n + k];
-          __syncwarp();
-        }
-      }
+      chol_solve_warp(M, d, zf, n);  // d = M^-1 (-dphi)
       __syncthreads();
       // Qd (+ d / gamma), Ad, and the linesearch's breakpoints
       float eta, beta;
@@ -557,9 +609,15 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
       gersh = gersh_new;
     }
 
-    // ---- scalar state; the terminating trip is not counted ----
+    // ---- scalar state; the terminating trip is not counted, and a dual-
+    // terminating one still made its outer update above (fused.py:865-883)
     if (b_sig) prev_iter = iter;
-    iter += 1.0f;
+    if (dual_term) {
+      status = 2.0f;  // QPALM_DUAL_TERMINATED
+      done = 1.0f;
+    } else {
+      iter += 1.0f;
+    }
     iter_out += b_sig ? 1.0f : 0.0f;
     gamma = gamma_new;
     epsa_in = epsa_new;
@@ -590,6 +648,8 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
     s[PRI_NORM] = pri_norm_s;
     s[DUA_NORM] = dua_norm_s;
     s[STATUS] = status;
+    s[EPSK_ABS] = epsk_abs;
+    s[EPSK_REL] = epsk_rel;
   }
 }
 
@@ -607,7 +667,8 @@ extern "C" int qp_fused_palm(const float* Q, const float* A, const float* q,
                              const float* cinv, float* nst, float* mst,
                              float* sc, const float* fset, int B, int n, int m,
                              int T, int inner_max_iter, int max_iter,
-                             int scaling_on, int proximal, void* stream) {
+                             int scaling_on, int proximal, int nonconvex,
+                             int enable_dual, void* stream) {
   if (B == 0 || T == 0) return 0;
   if (n % 4) return (int)cudaErrorInvalidValue;
   FSet fs;
@@ -618,6 +679,6 @@ extern "C" int qp_fused_palm(const float* Q, const float* A, const float* q,
   if (e != cudaSuccess) return (int)e;
   fused_palm_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(
       Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, fs, n, m, T,
-      inner_max_iter, max_iter, scaling_on, proximal);
+      inner_max_iter, max_iter, scaling_on, proximal, nonconvex, enable_dual);
   return (int)cudaGetLastError();
 }

@@ -2,15 +2,17 @@
 
 Replaces the Pallas kernel of qpalm_tpu/solver/fused.py (`_make_kernel`'s
 inner `kernel`, launched per 128-lane block by `fused_chunk`) for its
-all-on-chip, convex tier.  The CUDA source is csrc/fused_palm.cu: one
-block of threads per problem, with Q, A, the Schur matrix and the state in
-shared memory.  `fused_palm_plain` below is its plain twin; it follows
-fused.py:538-906 operation by operation on batch-first tensors, and is
-what a CPU tensor runs.
+all-on-chip tier: convex (proximal or plain), nonconvex under per-problem
+gamma pins, and dual-objective termination.  The CUDA source is
+csrc/fused_palm.cu: one block of threads per problem, with Q, A, the Schur
+matrix and the state in shared memory.  `fused_palm_plain` below is its
+plain twin; it follows fused.py:538-906 operation by operation on
+batch-first tensors, and is what a CPU tensor runs.
 
 Around the kernel sits the host glue of the reference: `_prepare` (cast,
-Ruiz scaling, initial state), `_init_fused` (cold and warm start),
-`_finish` (unscaling, final multipliers) and `solve_batch_fused`.
+Ruiz scaling, initial state), `_init_fused` (cold and warm start, gamma
+pins), `_finish` (unscaling, final multipliers) and `solve_batch_fused`
+(one launch, or host-chunked launches with an early exit between them).
 
 State layout, batch first and packed into three tensors:
     nst (B, 8, n): x, x0, Qx, A'y, x_prev, tau*Qd, tau*d, cert_x
@@ -47,18 +49,12 @@ class FusedState(NamedTuple):
     sc: torch.Tensor   # (B, 18)
 
 
-def _not_in_slice(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md, {item}")
-
-
-def _check_settings(s: Settings):
-    if s.enable_dual_termination:
-        raise _not_in_slice("dual-objective termination in the fused kernel",
-                            "section 2, K1 tiers")
-    if s.nonconvex:
-        raise _not_in_slice("the nonconvex fused solve",
-                            "section 2, K1 tiers")
+def fused_smem_bytes(n: int, m: int) -> int:
+    """Shared memory one block of K1 uses at (n, m): Q, A, the Schur matrix
+    M, 18 n-vectors, 19 m-vectors and the reduction scratch.  It mirrors
+    fused_palm.cu's qp_fused_smem_bytes, so the plan can be checked where
+    the library cannot be built."""
+    return 4 * (2 * n * n + m * n + 18 * n + 19 * m + 2 * 12 * 8)
 
 
 def _float_settings(s: Settings) -> np.ndarray:
@@ -67,7 +63,7 @@ def _float_settings(s: Settings) -> np.ndarray:
     return np.array([
         s.eps_abs, s.eps_rel, s.eps_prim_inf, s.eps_dual_inf, s.rho,
         s.theta, s.delta, s.sigma_max, s.gamma_upd,
-        s.eps_dual_inf * s.eps_dual_inf,
+        s.eps_dual_inf * s.eps_dual_inf, s.dual_objective_limit,
     ], np.float32)
 
 
@@ -209,14 +205,15 @@ def fused_palm_plain(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
                      s: Settings) -> FusedState:
     """Plain twin of the CUDA kernel: T iterations on every problem of the
     batch in lockstep, state written under masks (fused.py:538-906)."""
-    _check_settings(s)
     Q, A, q, bmin, bmax = data.Q, data.A, data.q, data.bmin, data.bmax
     Dinv, Einv = scal.Dinv, scal.Einv
     cinv = scal.cinv[:, None]
     nst, mst, sc = (t.clone() for t in st)
     n = Q.shape[-1]
+    nonconvex = bool(s.nonconvex)  # implies proximal (solve_batch_fused)
     prox = bool(s.proximal)
     eps_abs, eps_rel = float(s.eps_abs), float(s.eps_rel)
+    dual_limit = float(np.float32(s.dual_objective_limit))
     zero = torch.zeros((), dtype=Q.dtype, device=Q.device)
     one = torch.ones((), dtype=Q.dtype, device=Q.device)
     eye = torch.eye(n, dtype=Q.dtype, device=Q.device)
@@ -322,13 +319,43 @@ def fused_palm_plain(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
             b_outer, torch.clamp(s.rho * row(_EPSR_IN), min=eps_rel),
             row(_EPSR_IN))
 
+        # dual-objective termination on outer trips (fused.py:683-710): a
+        # Q that is not PD gives NaN, and a NaN dobj never terminates
+        dual_term = torch.zeros_like(b_outer)
+        if s.enable_dual_termination and bool(b_outer.any()):
+            g = Atyh + q
+            v = _solve_kernel_order(cholesky_upper_plain(Q), g)
+            g_v = sm(g * v)
+            contrib = sm(torch.where(yh > 0, yh * bmax, yh * bmin))
+            dobj = (-0.5 * g_v - contrib) * cinv + row(_COBJ)
+            dual_term = b_outer & torch.isfinite(dobj) & (dobj > dual_limit)
+
         gamma_new = gamma
         Qx_g = Qx
         nbch_new = row(_NB_CHANGED)
         gmaxed_new = row(_GAMMA_MAXED)
         gmax_l = row(_GAMMA_MAX)
+        epsk_abs, epsk_rel = row(_EPSK_ABS), row(_EPSK_REL)
         x0_new = x0
-        if prox:
+        if nonconvex:
+            # gamma pinned per problem: no boost; the proximal centre moves
+            # on the eps_k ladder (qpalm.c:586-609), and exhausted trips
+            # step gamma toward its cap (fused.py:721-747)
+            eps_k = epsk_abs + epsk_rel * axz_max
+            move = b_outer & (pri_norm < eps_k)
+            epsk_abs = torch.where(
+                move, torch.clamp(s.rho * epsk_abs, min=eps_abs), epsk_abs)
+            epsk_rel = torch.where(
+                move, torch.clamp(s.rho * epsk_rel, min=eps_rel), epsk_rel)
+            x0_new = torch.where(move, x, x0)
+            stepped = torch.where(
+                gamma < gmax_l,
+                torch.minimum(gamma * s.gamma_upd, gmax_l), gamma)
+            gamma_new = torch.where(b_exh, stepped, gamma)
+            diff = 1.0 / gamma_new - 1.0 / gamma
+            Qx_g = torch.where(b_exh & (gamma_new != gamma), Qx + diff * x,
+                               Qx)
+        elif prox:
             # boost when the active set has settled (qpalm.c:612-630)
             check = b_outer & (gmaxed_new < 0.5) & (row(_ITER_OUT) > 0) \
                 & (row(_NB_CHANGED) < 0.5) & (pri_norm < eps_pri)
@@ -412,22 +439,29 @@ def fused_palm_plain(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
             certy,
         ], dim=1)
 
-        # scalar state; the terminating trip is not counted (fused.py:880)
+        # scalar state; the terminating trip is not counted (fused.py:880),
+        # and a finished problem keeps the norms of its last trip, as the
+        # kernel's block does when it leaves its loop
         status_new = torch.where(
             solved, float(C.QPALM_SOLVED),
             torch.where(pinf, float(C.QPALM_PRIMAL_INFEASIBLE),
                         torch.where(dinf, float(C.QPALM_DUAL_INFEASIBLE),
-                                    row(_STATUS))))
+                                    torch.where(
+                                        dual_term,
+                                        float(C.QPALM_DUAL_TERMINATED),
+                                        row(_STATUS)))))
         sc = sc.clone()
         for k, v in (
             (_GAMMA, gamma_new), (_EPSA_IN, epsa_new), (_EPSR_IN, epsr_new),
-            (_DONE, (done | do_term).to(Q.dtype)),
-            (_ITER, row(_ITER) + live.to(Q.dtype)),
+            (_DONE, (done | do_term | dual_term).to(Q.dtype)),
+            (_ITER, row(_ITER) + (live & ~dual_term).to(Q.dtype)),
             (_PREV_ITER, prev_iter_new), (_NO_CHANGE, no_change_new),
             (_GAMMA_MAXED, gmaxed_new), (_ITER_OUT, iter_out_new),
             (_GERSH, gersh_new), (_NB_CHANGED, nbch_final),
-            (_PRI_NORM, pri_norm), (_DUA_NORM, dua_norm),
-            (_STATUS, status_new),
+            (_PRI_NORM, torch.where(done, row(_PRI_NORM), pri_norm)),
+            (_DUA_NORM, torch.where(done, row(_DUA_NORM), dua_norm)),
+            (_STATUS, status_new), (_EPSK_ABS, epsk_abs),
+            (_EPSK_REL, epsk_rel),
         ):
             sc[:, k] = v[:, 0]
     return FusedState(nst, mst, sc)
@@ -437,7 +471,6 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
                s: Settings) -> FusedState:
     """Run T P-ALM iterations on scaled f32 data: the plain twin for CPU
     tensors, the CUDA kernel (one launch) for CUDA tensors."""
-    _check_settings(s)
     if data.Q.device.type == "cpu":
         return fused_palm_plain(data, scal, st, T, s)
     tensors = (*data[:5], scal.Dinv, scal.Einv, scal.cinv, *st)
@@ -455,8 +488,7 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
     if n % 4:
         raise ValueError(f"fused_palm: n={n} must be a multiple of 4 "
                          "(stack_problems pads to 8)")
-    lib = kernels()
-    need = lib.qp_fused_smem_bytes(n, m)
+    need = fused_smem_bytes(n, m)
     if need > SMEM_LIMIT:
         raise NotImplementedError(
             f"fused_palm: n={n}, m={m} needs {need} bytes of shared memory, "
@@ -469,10 +501,11 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
                        for t in st))
     fset = _float_settings(s)
     with torch.cuda.device(data.Q.device):
-        rc = lib.qp_fused_palm(
+        rc = kernels().qp_fused_palm(
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out),
             fset.ctypes.data, B, n, m, int(T), int(s.inner_max_iter),
             int(s.max_iter), int(bool(s.scaling)), int(bool(s.proximal)),
+            int(bool(s.nonconvex)), int(bool(s.enable_dual_termination)),
             torch.cuda.current_stream().cuda_stream)
     check_launch("qp_fused_palm", rc)
     fused_palm.launches += 1
@@ -482,15 +515,27 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
 fused_palm.launches = 0
 
 
-def _init_fused(data: QPData, s: Settings, x_ws=None, y_ws=None
-                ) -> FusedState:
+def _tensor(a, like: torch.Tensor) -> torch.Tensor:
+    """A tensor or array-like as a tensor of `like`'s dtype and device (an
+    array is copied: it may be a read-only view of another framework's)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype=like.dtype, device=like.device)
+    return torch.tensor(np.asarray(a), dtype=like.dtype, device=like.device)
+
+
+def _init_fused(data: QPData, s: Settings, x_ws=None, y_ws=None,
+                gamma_init=None, gamma_max=None) -> FusedState:
     """Cold or warm start (qpalm.c:322-399 and the sigma heuristic
-    iteration.c:50-84, as fused.py:1075-1138)."""
+    iteration.c:50-84, as fused.py:1075-1138).  `gamma_init`/`gamma_max`
+    are optional per-problem (B,) values: the nonconvex gamma pins."""
     Q, A, q, bmin, bmax = data.Q, data.A, data.q, data.bmin, data.bmax
     B, n = q.shape
     m = bmin.shape[1]
     kw = dict(dtype=q.dtype, device=q.device)
-    g0 = torch.full((B,), s.gamma_init, **kw)
+    g0 = torch.full((B,), s.gamma_init, **kw) if gamma_init is None \
+        else _tensor(gamma_init, q)
+    gmax = torch.full((B,), s.gamma_max, **kw) if gamma_max is None \
+        else _tensor(gamma_max, q)
     if x_ws is not None:
         x = x_ws
         Qx = torch.einsum("bij,bj->bi", Q, x)
@@ -513,7 +558,7 @@ def _init_fused(data: QPData, s: Settings, x_ws=None, y_ws=None
 
     sc = torch.zeros((B, _SC_ROWS), **kw)
     sc[:, _GAMMA] = g0
-    sc[:, _GAMMA_MAX] = s.gamma_max
+    sc[:, _GAMMA_MAX] = gmax
     sc[:, _EPSA_IN] = s.eps_abs_in
     sc[:, _EPSR_IN] = s.eps_rel_in
     sc[:, _EPSK_ABS] = s.eps_abs_in
@@ -527,7 +572,8 @@ def _init_fused(data: QPData, s: Settings, x_ws=None, y_ws=None
     return FusedState(nst, mst, sc)
 
 
-def _prepare(data: QPData, s: Settings, x_ws=None, y_ws=None):
+def _prepare(data: QPData, s: Settings, x_ws=None, y_ws=None,
+             gamma_init=None, gamma_max=None):
     """Cast to f32, scale, and build the initial state (fused.py:1141)."""
     d32 = QPData(*(t.to(torch.float32) for t in data))
     B, n = d32.q.shape
@@ -537,13 +583,10 @@ def _prepare(data: QPData, s: Settings, x_ws=None, y_ws=None):
     else:
         sdata = d32
         scal = identity_scaling(B, n, m, torch.float32, d32.q.device)
-    dev = d32.q.device
-    xw = None if x_ws is None else \
-        torch.tensor(x_ws, dtype=torch.float32, device=dev) * scal.Dinv
+    xw = None if x_ws is None else _tensor(x_ws, d32.q) * scal.Dinv
     yw = None if y_ws is None else \
-        torch.tensor(y_ws, dtype=torch.float32, device=dev) \
-        * scal.Einv * scal.c[:, None]
-    return sdata, scal, _init_fused(sdata, s, xw, yw)
+        _tensor(y_ws, d32.q) * scal.Einv * scal.c[:, None]
+    return sdata, scal, _init_fused(sdata, s, xw, yw, gamma_init, gamma_max)
 
 
 def _finish(sdata: QPData, scal: ScalingInfo, st: FusedState):
@@ -566,17 +609,34 @@ def _finish(sdata: QPData, scal: ScalingInfo, st: FusedState):
 
 
 def solve_batch_fused(data: QPData, settings: Settings, x_ws=None,
-                      y_ws=None, chunk: int = 0):
+                      y_ws=None, chunk: int = 0, gamma_init=None,
+                      gamma_max=None):
     """Solve a stacked batch (leading batch axis, as from stack_problems)
     with kernel K1 on the batch's device (fused.py:1282).  Returns
     (x (B,n), y (B,m), status (B,), iterations (B,), pri_norm (B,),
     dua_norm (B,), delta_y (B,m), delta_x (B,n)), unscaled; certificates
-    are meaningful only where the status reports the infeasibility."""
-    if chunk:
-        raise _not_in_slice("host-chunked fused solves (chunk != 0)",
-                            "section 2, K1 tiers")
-    _check_settings(settings)
+    are meaningful only where the status reports the infeasibility.
+
+    `chunk` 0 runs max_iter iterations in one launch; a positive chunk runs
+    launches of `chunk` iterations with a host early-exit check between
+    them.  For `settings.nonconvex` pass the per-problem pins of
+    `nonconvex.batch_gamma_pins` as `gamma_init`/`gamma_max`."""
+    if chunk < 0:
+        raise ValueError(f"chunk must be >= 0, got {chunk}")
+    if settings.nonconvex:
+        settings = settings.replace(proximal=True)
     full_f32_matmul()
-    sdata, scal, st = _prepare(data, settings, x_ws, y_ws)
-    st = fused_palm(sdata, scal, st, int(settings.max_iter), settings)
+    sdata, scal, st = _prepare(data, settings, x_ws, y_ws, gamma_init,
+                               gamma_max)
+    max_iter = int(settings.max_iter)
+    if not chunk:
+        st = fused_palm(sdata, scal, st, max_iter, settings)
+        return _finish(sdata, scal, st)
+    done_iters = 0
+    while done_iters < max_iter:
+        step = min(int(chunk), max_iter - done_iters)
+        st = fused_palm(sdata, scal, st, step, settings)
+        done_iters += step
+        if done_iters < max_iter and bool((st.sc[:, _DONE] > 0.5).all()):
+            break
     return _finish(sdata, scal, st)

@@ -1,7 +1,9 @@
 """Kernel K1 (the fused P-ALM loop) of the PyTorch port: the plain twin
 through solve_batch_fused against qpalm_tpu.solver.fused.solve_batch_fused
-in interpret mode, at the bars of tests/test_fused.py; and the CUDA kernel
-against its plain twin on a card."""
+in interpret mode, at the bars of tests/test_fused.py, in every tier the
+port runs (convex, nonconvex under gamma pins, dual-objective termination,
+warm start, host chunking); and the CUDA kernel against its plain twin on
+a card."""
 
 import numpy as np
 import pytest
@@ -9,12 +11,13 @@ import torch
 
 from helpers import random_convex_qp
 from qpalm_tpu_torch import constants as C
-from qpalm_tpu_torch.batch import stack_problems
+from qpalm_tpu_torch.batch import (
+    solve_batch, solve_batch_escalate, solve_many, stack_problems)
 from qpalm_tpu_torch.solver import fused as F
+from qpalm_tpu_torch.solver.nonconvex import batch_gamma_pins
 from qpalm_tpu_torch.types import Settings
 
 B = 128  # the reference kernel takes whole 128-lane blocks
-
 
 
 def _primal_infeasible(seed):
@@ -34,24 +37,56 @@ DUAL_INFEASIBLE = (np.zeros((1, 1)), np.zeros((1, 1)), np.array([-1.0]),
 
 
 def _settings(scaling=2, **kw):
-    return Settings(dtype="float32", eps_abs=1e-4, eps_rel=1e-4, max_iter=100,
-                    scaling=scaling, max_refine=0, delta=10.0, **kw)
+    base = dict(dtype="float32", eps_abs=1e-4, eps_rel=1e-4, max_iter=100,
+                scaling=scaling, max_refine=0, delta=10.0)
+    return Settings(**{**base, **kw})
 
 
-def _both(probs, s, x_ws=None, y_ws=None):
-    """(reference outputs, port outputs), each a list of numpy arrays."""
+def _nonconvex_family():
+    """tests/test_fused.py:193-204: half the problems indefinite, half
+    convex, n = m = 8."""
+    rng = np.random.default_rng(42)
+    probs = []
+    for i in range(B):
+        Q = rng.standard_normal((8, 8))
+        Q = 0.5 * (Q + Q.T) - 1.5 * np.eye(8) if i % 2 == 0 \
+            else Q @ Q.T + 0.1 * np.eye(8)
+        probs.append((Q, np.eye(8), rng.standard_normal(8), -np.ones(8),
+                      np.ones(8)))
+    return probs
+
+
+def _jax_settings(s):
     import qpalm_tpu
+
+    return qpalm_tpu.Settings(**{k: getattr(s, k) for k in (
+        "dtype", "eps_abs", "eps_rel", "max_iter", "scaling", "max_refine",
+        "delta", "proximal", "nonconvex", "enable_dual_termination",
+        "dual_objective_limit")})
+
+
+def _jax_pins(probs, s):
+    """The JAX package's gamma pins, as numpy: both sides are fed these, so
+    an ulp between the two LOBPCGs cannot steer the f32 trajectories."""
+    from qpalm_tpu.batch import stack_problems as jstack
+    from qpalm_tpu.solver.nonconvex import batch_gamma_pins as jpins
+
+    return tuple(np.asarray(a) for a in
+                 jpins(jstack(probs, np.float32), _jax_settings(s)))
+
+
+def _both(probs, s, x_ws=None, y_ws=None, pins=(None, None), chunk=0):
+    """(reference outputs, port outputs), each a list of numpy arrays; the
+    reference runs in one call, the port in `chunk`-iteration launches."""
     from qpalm_tpu.batch import stack_problems as jstack
     from qpalm_tpu.solver.fused import solve_batch_fused as jsolve
 
-    js = qpalm_tpu.Settings(**{k: getattr(s, k) for k in
-                               ("dtype", "eps_abs", "eps_rel", "max_iter",
-                                "scaling", "max_refine", "delta",
-                                "proximal")})
-    ref = jsolve(jstack(probs, np.float32), js, x_ws=x_ws, y_ws=y_ws,
+    ref = jsolve(jstack(probs, np.float32), _jax_settings(s), x_ws=x_ws,
+                 y_ws=y_ws, gamma_init=pins[0], gamma_max=pins[1],
                  interpret=True)
     got = F.solve_batch_fused(stack_problems(probs, np.float32), s,
-                              x_ws=x_ws, y_ws=y_ws)
+                              x_ws=x_ws, y_ws=y_ws, chunk=chunk,
+                              gamma_init=pins[0], gamma_max=pins[1])
     return [np.asarray(a) for a in ref], [a.numpy() for a in got]
 
 
@@ -121,14 +156,83 @@ def test_plain_twin_warm_start_matches_reference_kernel():
     assert got2[3].max() < ref[3].max()
 
 
-def test_out_of_slice_features_raise():
-    probs = [random_convex_qp(4, 6, seed=1)]
+def test_plain_twin_nonconvex_matches_reference_kernel():
+    pytest.importorskip("jax")
+    probs = _nonconvex_family()
+    s = _settings(2, nonconvex=True, max_iter=400)
+    ref, got = _both(probs, s, pins=_jax_pins(probs, s))
+    assert np.mean(ref[2] == C.QPALM_SOLVED) > 0.9
+    _assert_parity(ref, got, min_equal_iters=B)
+
+
+def test_plain_twin_dual_termination_matches_reference_kernel():
+    pytest.importorskip("jax")
+    probs = [random_convex_qp(16, 24, seed=90 + i, density=0.5)
+             for i in range(B)]
+    s = _settings(2, enable_dual_termination=True, dual_objective_limit=-1.0)
+    ref, got = _both(probs, s)
+    assert (ref[2] == C.QPALM_DUAL_TERMINATED).any()
+    assert (ref[2] == C.QPALM_SOLVED).any()
+    _assert_parity(ref, got, min_equal_iters=B)
+
+
+def test_plain_twin_chunked_equals_single_call():
+    pytest.importorskip("jax")
+    probs = [random_convex_qp(12, 18, seed=90 + i, density=0.5)
+             for i in range(B)]
+    s = _settings(2, max_iter=60)
+    ref, chunked = _both(probs, s, chunk=13)
+    single = [a.numpy() for a in
+              F.solve_batch_fused(stack_problems(probs, np.float32), s)]
+    for a, b in zip(chunked, single):
+        assert np.array_equal(a, b, equal_nan=True)
+    assert np.array_equal(chunked[2], ref[2])
+
+
+def test_plain_twin_chunked_keeps_certificates():
+    """tests/test_fused.py:283-303: a Farkas certificate found in an early
+    chunk survives the later launches."""
+    probs = [random_convex_qp(8, 12, seed=100 + i, density=0.5)
+             for i in range(B)]
+    Q, A, q, bl, bu = probs[3]
+    A2 = A.copy()
+    A2[1] = A2[0]
+    bl2, bu2 = bl.copy(), bu.copy()
+    bl2[0], bu2[0] = 1.0, 2.0
+    bl2[1], bu2[1] = 3.0, 4.0  # contradictory duplicate row
+    probs[3] = (Q, A2, q, bl2, bu2)
+    s = _settings(2, max_iter=120)
     data = stack_problems(probs, np.float32)
-    for kw in (dict(nonconvex=True), dict(enable_dual_termination=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            F.solve_batch_fused(data, _settings(2, **kw))
+    out = F.solve_batch_fused(data, s, chunk=10)
+    assert out[2][3] == C.QPALM_PRIMAL_INFEASIBLE
+    cert = out[6][3, :12].numpy().astype(np.float64)
+    assert np.abs(cert).max() > 0  # not zeroed by a later chunk
+    assert np.abs(A2.T @ cert).max() <= 1e-3 * np.abs(cert).max()
+    single = F.solve_batch_fused(data, s)
+    for a, b in zip(out, single):
+        assert torch.equal(a, b)
+
+
+def test_out_of_slice_features_raise():
+    """What the port does not run yet raises NotImplementedError naming its
+    ROADMAP.md item, with no fallback: the general solver loop
+    (use_fused='never', or a setting only that loop takes), K1's streaming
+    tier (a shape over its shared-memory plan) and the f64 escalation."""
+    probs = [random_convex_qp(4, 6, seed=1)]
+    for kw in (dict(use_fused="never"), dict(max_refine=2),
+               dict(time_limit=10.0)):
+        with pytest.raises(NotImplementedError, match="section 1 item 3"):
+            solve_batch(probs, _settings(2, **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="section 2, K1 tiers"):
+        solve_batch([random_convex_qp(200, 8, seed=2)], _settings(2),
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        F.solve_batch_fused(data, _settings(2), chunk=10)
+        solve_many(probs, _settings(2), escalate=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="section 1 items 3"):
+        solve_batch_escalate(probs, _settings(2))
+    with pytest.raises(ValueError, match="chunk"):
+        F.solve_batch_fused(stack_problems(probs, np.float32), _settings(2),
+                            chunk=-1)
 
 
 def test_plain_twin_reports_max_iter():
@@ -142,27 +246,55 @@ def test_plain_twin_reports_max_iter():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,proximal", [(16, 24, True), (16, 24, False),
-                                          (8, 300, True)])  # m > 256
-def test_cuda_kernel_matches_plain_twin(n, m, proximal):
+@pytest.mark.parametrize("n,m,proximal,tier", [
+    (16, 24, True, "convex"), (16, 24, False, "convex"),
+    (8, 300, True, "convex"),  # m > 256
+    (8, 8, True, "nonconvex"), (16, 24, True, "dual")])
+def test_cuda_kernel_matches_plain_twin(n, m, proximal, tier):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    # a zero Hessian needs the proximal term (test_infeasibility.py:64)
-    head = [PRIMAL_INFEASIBLE] + ([DUAL_INFEASIBLE] if proximal else [])
-    probs = head + [random_convex_qp(n, m, seed=260 + i, density=0.5)
-                    for i in range(64 - len(head))]
+    pins = (None, None)
+    if tier == "nonconvex":
+        probs = _nonconvex_family()[:64]
+        s = _settings(2, nonconvex=True, max_iter=400)
+    else:
+        # a zero Hessian needs the proximal term (test_infeasibility.py:64)
+        head = [PRIMAL_INFEASIBLE] + ([DUAL_INFEASIBLE] if proximal else [])
+        probs = head + [random_convex_qp(n, m, seed=260 + i, density=0.5)
+                        for i in range(64 - len(head))]
+        s = _settings(2, proximal=proximal,
+                      enable_dual_termination=tier == "dual",
+                      dual_objective_limit=-1.0)
     data = stack_problems(probs, np.float32, device="cuda")
-    s = _settings(2, proximal=proximal)
+    if tier == "nonconvex":
+        pins = batch_gamma_pins(data, s)
+        s = s.replace(proximal=True)
     before = F.fused_palm.launches
-    got = [a.cpu().numpy() for a in F.solve_batch_fused(data, s)]
+    got = [a.cpu().numpy() for a in F.solve_batch_fused(
+        data, s, gamma_init=pins[0], gamma_max=pins[1])]
     assert F.fused_palm.launches == before + 1
-    sd, scal, st = F._prepare(data, s)
+    if tier == "dual":
+        assert (got[2] == C.QPALM_DUAL_TERMINATED).any()
+    sd, scal, st = F._prepare(data, s, gamma_init=pins[0],
+                              gamma_max=pins[1])
     plain = [a.cpu().numpy() for a in F._finish(
         sd, scal, F.fused_palm_plain(sd, scal, st, s.max_iter, s))]
     assert np.array_equal(got[2], plain[2])
     same = got[3] == plain[3]
     assert same.sum() >= 60
     assert np.max(np.abs(got[0] - plain[0])[same]) < 1e-4
-    again = [a.cpu().numpy() for a in F.solve_batch_fused(data, s)]
+    again = [a.cpu().numpy() for a in F.solve_batch_fused(
+        data, s, gamma_init=pins[0], gamma_max=pins[1])]
     for a, b in zip(got, again):
         assert np.array_equal(a, b)  # no atomics: bit-identical reruns
+
+
+@pytest.mark.cuda
+def test_cuda_smem_mirror_matches_library():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from qpalm_tpu_torch._build import kernels
+
+    lib = kernels()
+    for n, m in ((8, 8), (16, 24), (64, 96), (64, 80), (96, 144), (200, 8)):
+        assert F.fused_smem_bytes(n, m) == lib.qp_fused_smem_bytes(n, m)

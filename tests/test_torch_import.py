@@ -15,6 +15,7 @@ PORT_MODULES = [
     "qpalm_tpu_torch.linalg.chol", "qpalm_tpu_torch.solver.fused",
     "qpalm_tpu_torch.polish_device", "qpalm_tpu_torch.referee",
     "qpalm_tpu_torch.workloads", "qpalm_tpu_torch.precision",
+    "qpalm_tpu_torch.solver.nonconvex", "qpalm_tpu_torch.linalg.dense",
 ]
 
 
