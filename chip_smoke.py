@@ -26,11 +26,35 @@ Phases, each asserting, any failure exiting non-zero:
      (q scaled by 1.01, from phase 4's x and y; fewer iterations than cold)
      at the headline shape, K1 against its twin.
   Phases 6-8 each zero the counters before their solve_batch calls and
-  read them after.
+  read them after;
+  9. K1's streaming tier forced (qa_panel > 0) at the headline shape
+     against the on-chip K1 of phase 4 (statuses and |dx| at phase 4's
+     bars, iteration counts at STREAM_COUNT_BAR), and against its
+     streaming twin;
+ 10. the streaming kernel at full width (randomQP n=352, B=128, the sweep's
+     settings) against its twin for 30 iterations from the same state,
+     three launches of 10 iterations bit-identical to one of 30, and one
+     nonconvex (BOXQP-d n=16) and one dual-terminating (phase 7's limit)
+     streaming launch against the twin;
+ 11. the workloads sweep, all 15 rows of scripts/bench_workloads.py through
+     qpalm_tpu_torch/sweep.py (f32 pass through batch.solve_batch, f64
+     host polish, finisher),
+     K1's counters zeroed before and read after: each streaming row runs
+     the streaming kernel, each row certifies >= 99% of its lanes at 1e-6
+     and the f64 referee agrees on every certified lane;
+ 12. the memory-plan probes (qpalm_tpu_torch/probe.py) at n in 128, 224,
+     256, 352 with m = 1.5 n, B = 128, timed with their counters zeroed,
+     then against their plain versions (rel err < 1e-5 scratch, < 1e-3
+     assembly).
 
 It prints a JSON line of the kernels' numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}} only when every phase passed.
 There is no CPU fallback: without a CUDA device it exits non-zero.
+
+`bound_ms` in the kernels line is the least time the card could take for
+the work of the measured call: the larger of its float32 operations over
+67 TFLOP/s and its bytes (each input read once, each output written once)
+over 3.35 TB/s, the H100 SXM's published peaks.
 """
 
 import json
@@ -47,6 +71,35 @@ EPS_TARGET = 1e-6
 NC_ROWS = ((64, 80, 256), (16, 20, 512))
 S_NC = dict(dtype="float32", nonconvex=True, eps_abs=1e-4, eps_rel=1e-4,
             max_iter=400, scaling=2, max_refine=0, verbose=False)
+STREAM_T = 30  # iterations of the full-width streaming comparison
+# phase 9: iteration counts the two tiers must share at the headline shape
+# (of B = 512), the fewest two right implementations share there
+STREAM_COUNT_BAR = 474
+F32_PEAK = 67e12  # FLOP/s, float32 outside the tensor cores
+HBM_RATE = 3.35e12  # bytes/s
+
+
+def bound(flops, nbytes):
+    """bound_ms and bound_by of work of `flops` f32 operations that must
+    move `nbytes` bytes."""
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound(nb, n, m, iterations):
+    """K1's bound for `iterations` counted iterations summed over nb
+    problems of shape (n, m).  Per iteration: the Schur matrix A'WA, which
+    is symmetric, so one triangle (m n (n + 1)), plus Q and I/gamma (n^2);
+    its Cholesky (n^3 / 3), the two triangular solves, Qd and the Q x
+    update (4 n^2), A'y and Ad (4 m n), the linesearch's 55 hinge sums
+    (about 6 m each) and about 40 (n + m) elementwise.  Bytes: Q, A, the
+    vectors and the state read once, the state written once."""
+    per_iter = (m * n * (n + 1) + n * n + n ** 3 / 3 + 4 * n * n + 4 * m * n
+                + 330 * m + 40 * (n + m))
+    nbytes = 4 * nb * (n * n + m * n + 2 * n + 3 * m + 1
+                       + 2 * (8 * n + 7 * m + 18))
+    return bound(per_iter * float(iterations), nbytes)
 
 
 def fail(msg):
@@ -93,20 +146,22 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def kernel_vs_plain(F, sd, scal, st, s, label):
-    """K1 and its plain twin from the same state, held at phase 4's bars
-    (statuses on all but 1%, iteration counts on all but 5%, |dx| < 1e-3
-    where both agree).  Returns (kernel outputs, twin outputs) as numpy and
-    the numbers of the kernels line."""
+def kernel_vs_plain(F, sd, scal, st, s, label, qa_panel=-2):
+    """K1 and its plain twin from the same state, in the tier `qa_panel`
+    selects, held at phase 4's bars (statuses on all but 1%, iteration
+    counts on all but 5%, |dx| < 1e-3 where both agree).  Returns (kernel
+    outputs, twin outputs) as numpy and the numbers of the kernels line."""
     import numpy as np
 
     T = s.max_iter
-    out_k = F._finish(sd, scal, F.fused_palm(sd, scal, st, T, s))
+    nb, n, _ = sd.Q.shape
+    m = sd.A.shape[1]
+    stream = F._tier(qa_panel, n, m) == "stream"
+    out_k = F._finish(sd, scal, F.fused_palm(sd, scal, st, T, s, qa_panel))
     out_p, plain_ms = timed(lambda: F._finish(
-        sd, scal, F.fused_palm_plain(sd, scal, st, T, s)))
+        sd, scal, F.fused_palm_plain(sd, scal, st, T, s, stream)))
     k_np = [a.cpu().numpy() for a in out_k]
     p_np = [a.cpu().numpy() for a in out_p]
-    nb = len(k_np[2])
     st_eq = k_np[2] == p_np[2]
     it_eq = k_np[3] == p_np[3]
     both = st_eq & it_eq
@@ -116,11 +171,14 @@ def kernel_vs_plain(F, sd, scal, st, s, label):
     require(it_eq.sum() >= nb - -(-26 * nb // 512),
             f"{label}: K1 iterations equal on {it_eq.sum()}/{nb}")
     require(dx < 1e-3, f"{label}: K1 max|dx| {dx:.3e} on agreeing lanes")
-    ms = cuda_ms(lambda: F.fused_palm(sd, scal, st, T, s), 3)
-    say(f"[{label}] K1 vs twin: status equal {st_eq.sum()}/{nb}, iterations "
-        f"equal {it_eq.sum()}/{nb}, max|dx| {dx:.2e}; K1 {ms:.3f} ms, plain "
+    ms = cuda_ms(lambda: F.fused_palm(sd, scal, st, T, s, qa_panel), 3)
+    say(f"[{label}] K1 ({'streaming' if stream else 'on-chip'}) vs twin: "
+        f"status equal {st_eq.sum()}/{nb}, iterations equal "
+        f"{it_eq.sum()}/{nb}, max|dx| {dx:.2e}; K1 {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms ({T} iterations)")
-    return k_np, p_np, dict(max_abs_err=dx, ms=ms, plain_ms=plain_ms)
+    return k_np, p_np, dict(max_abs_err=dx, ms=ms, plain_ms=plain_ms,
+                            library_ms=None,
+                            **k1_bound(nb, n, m, k_np[3].sum()))
 
 
 def stationary(p, x, y, tol=5e-3):
@@ -208,7 +266,8 @@ def phase_nonconvex(dev):
 
 def phase_dual(dev, probs, s32, x_cold):
     """Phase 7: dual-objective termination, the limit at the median of the
-    cold solve's unscaled objectives."""
+    cold solve's unscaled objectives.  Returns the numbers of the kernels
+    line, the launches and the settings."""
     import numpy as np
     import torch
 
@@ -240,7 +299,7 @@ def phase_dual(dev, probs, s32, x_cold):
     say(f"[{label}] limit {limit:.4f} (median objective): dual-terminated "
         f"{n_dual}, solved {n_sol}, other {len(status) - n_dual - n_sol}; "
         f"mean iterations {res.iterations.float().mean().item():.2f}")
-    return numbers, launches
+    return numbers, launches, s
 
 
 def phase_chunk_warm(dev, probs, s32, x_cold, y_cold):
@@ -289,6 +348,207 @@ def phase_chunk_warm(dev, probs, s32, x_cold, y_cold):
         f"y bit-identical to one launch; [warm] q*1.01 warm-started: mean "
         f"iterations {it_w:.2f} vs cold {it_c:.2f}, solved "
         f"{int((res.status == 1).sum())}/{len(warm)}, launches {n_warm}")
+
+
+def phase_stream_headline(sd, scal, st, s32, k_np):
+    """Phase 9: K1 forced to stream at the headline shape against the
+    on-chip K1 (phase 4's outputs k_np), then against its streaming twin.
+    The two tiers sum the Schur matrix in different orders (as the
+    reference's two tiers do) and round apart.  At this shape and eps the
+    iteration counts are that sensitive to rounding: on the CPU
+    (tools/tier_drift.py 512) the reference's two tiers share 488/512
+    counts, and the least that two right implementations share there (the
+    port's on-chip twin and the reference's on-chip kernel) is
+    STREAM_COUNT_BAR = 474.  The counts are held at that bar, which is
+    under phase 4's 486; the statuses and |dx| at phase 4's bars."""
+    import numpy as np
+
+    from qpalm_tpu_torch.solver import fused as F
+
+    T = s32.max_iter
+    s_np = [a.cpu().numpy() for a in F._finish(
+        sd, scal, F.fused_palm(sd, scal, st, T, s32, qa_panel=8))]
+    st_eq = s_np[2] == k_np[2]
+    it_eq = s_np[3] == k_np[3]
+    dx = float(np.abs(s_np[0] - k_np[0])[st_eq & it_eq].max())
+    require(st_eq.sum() >= B - 5,
+            f"streaming vs on-chip K1: status equal on {st_eq.sum()}/{B}")
+    require(it_eq.sum() >= STREAM_COUNT_BAR,
+            f"streaming vs on-chip K1: iterations equal on {it_eq.sum()}/{B}")
+    require(dx < 1e-3, f"streaming vs on-chip K1: max|dx| {dx:.3e}")
+    say(f"[stream headline] streaming vs on-chip K1: status equal "
+        f"{st_eq.sum()}/{B}, iterations equal {it_eq.sum()}/{B}, max|dx| "
+        f"{dx:.2e}")
+    kernel_vs_plain(F, sd, scal, st, s32, "stream headline", qa_panel=8)
+
+
+def phase_stream_full(dev, probs_dual, s_dual):
+    """Phase 10: the streaming kernel at full width against its twin for
+    STREAM_T iterations from the same state; then one nonconvex and one
+    dual-terminating streaming launch against the twin.  Returns the
+    numbers of the full-width comparison."""
+    import numpy as np
+    import torch
+
+    from qpalm_tpu_torch import sweep
+    from qpalm_tpu_torch.batch import stack_problems
+    from qpalm_tpu_torch.solver import fused as F
+    from qpalm_tpu_torch.solver.nonconvex import batch_gamma_pins
+    from qpalm_tpu_torch.types import Settings
+    from qpalm_tpu_torch.workloads import boxqp
+
+    probs = sweep.row_problems("randomQP", 352)
+    d32 = stack_problems(probs, np.float32, device=dev)
+    nb, n, _ = d32.Q.shape
+    m = d32.A.shape[1]
+    s = sweep.S32
+    sd, scal, st = F._prepare(d32, s)
+    require(F.pick_tier(n, m) == "stream", f"n={n}: not the streaming tier")
+    before = F.fused_palm.stream_launches
+    out_k = F.fused_palm(sd, scal, st, STREAM_T, s)
+    torch.cuda.synchronize()
+    require(F.fused_palm.stream_launches == before + 1,
+            "full width: the streaming kernel was not launched")
+    out_p, plain_ms = timed(lambda: F.fused_palm_plain(
+        sd, scal, st, STREAM_T, s, stream=True))
+    sc_k, sc_p = out_k.sc.cpu().numpy(), out_p.sc.cpu().numpy()
+    status_eq = int((sc_k[:, F._STATUS] == sc_p[:, F._STATUS]).sum())
+    iter_eq = int((sc_k[:, F._ITER] == sc_p[:, F._ITER]).sum())
+    rows_eq = int((sc_k == sc_p).all(1).sum())
+    sc_rel = float(np.max(np.abs(sc_k - sc_p)
+                          / np.maximum(1.0, np.abs(sc_p))))
+    dx = (out_k.nst[:, F._X] - out_p.nst[:, F._X]).abs().max().item()
+    require(status_eq == nb and iter_eq == nb,
+            f"full width: statuses equal on {status_eq}/{nb}, iteration "
+            f"counts on {iter_eq}/{nb}")
+    require(sc_rel < 1e-3, f"full width: sc rows differ by {sc_rel:.3e}")
+    require(dx < 1e-3, f"full width: max|dx| {dx:.3e}")
+    # T-iteration launches resume exactly: three launches of STREAM_T / 3
+    st3 = st
+    for _ in range(3):
+        st3 = F.fused_palm(sd, scal, st3, STREAM_T // 3, s)
+    require(all(torch.equal(a, b) for a, b in zip(st3, out_k)),
+            f"full width: 3 launches of {STREAM_T // 3} iterations differ "
+            f"from one of {STREAM_T}")
+    ms = cuda_ms(lambda: F.fused_palm(sd, scal, st, STREAM_T, s), 3)
+    iters = sc_k[:, F._ITER].sum()
+    say(f"[stream n={n} m={m} B={nb}] {STREAM_T} iterations from the same "
+        f"state: statuses {status_eq}/{nb}, iteration counts {iter_eq}/{nb}, "
+        f"all 18 sc rows bit-equal on {rows_eq}/{nb} (max rel {sc_rel:.2e}), "
+        f"max|dx| {dx:.2e}; 3 launches of {STREAM_T // 3} bit-identical to "
+        f"one; kernel {ms:.2f} ms, plain {plain_ms:.1f} ms")
+    numbers = dict(max_abs_err=dx, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   **k1_bound(nb, n, m, iters))
+
+    # nonconvex: BOXQP-d n=16 under its pins, 100 iterations
+    s_nc = Settings(**{**S_NC, "max_iter": 100})
+    d32 = stack_problems([boxqp(16, seed=16000 + i) for i in range(128)],
+                         np.float32, device=dev)
+    gi, gm = batch_gamma_pins(d32, s_nc)
+    s_nc = s_nc.replace(proximal=True)
+    sd, scal, st = F._prepare(d32, s_nc, gamma_init=gi, gamma_max=gm)
+    kernel_vs_plain(F, sd, scal, st, s_nc, "stream nonconvex n=16",
+                    qa_panel=8)
+    # dual-objective termination at phase 7's limit, forced to stream
+    sd, scal, st = F._prepare(stack_problems(probs_dual, np.float32,
+                                             device=dev), s_dual)
+    k_np, _, _ = kernel_vs_plain(F, sd, scal, st, s_dual,
+                                 "stream dual-termination", qa_panel=8)
+    require((k_np[2] == 2).any(), "stream dual: no lane dual-terminated")
+    return numbers
+
+
+def phase_sweep(dev):
+    """Phase 11: the 15 rows of the workloads sweep.  Returns the
+    streaming launches of the whole sweep."""
+    import torch
+
+    from qpalm_tpu_torch import sweep
+    from qpalm_tpu_torch.solver import fused as F
+
+    rows = []
+    torch.cuda.synchronize()
+    F.fused_palm.launches = F.fused_palm.stream_launches = 0
+    for family, size in sweep.ROWS:
+        before = (F.fused_palm.launches, F.fused_palm.stream_launches)
+        row = sweep.run_row(family, size, device=dev)
+        torch.cuda.synchronize()
+        row["launches"] = F.fused_palm.launches - before[0]
+        row["stream_launches"] = F.fused_palm.stream_launches - before[1]
+        rows.append(row)
+        label = f"{family} {row['size']} B={row['batch']}"
+        say(f"[sweep] {label} ({row['n_pad']}x{row['m_pad']}, {row['tier']}): "
+            f"certified {row['certified']}/{row['batch']} (polish "
+            f"{row['polish1_ok']}, retried {row['retried']}, finisher "
+            f"{row['finished']}), referee disagreements "
+            f"{row['referee_disagreements']}, f32 solved {row['solved_f32']}, "
+            f"mean iterations {row['mean_iterations']:.1f}; wall "
+            f"{row['wall_s']:.3f} s = solve_batch {row['solve_s']:.3f} (K1 "
+            f"{row['k1_ms']:.1f} ms) + copy "
+            f"{row['copy_s']:.3f} + polish {row['polish_s']:.3f} + retry/"
+            f"finisher {row['retry_finish_s']:.3f}; launches "
+            f"{row['launches']} (streaming {row['stream_launches']})")
+        require(row["launches"] >= 1, f"{label}: K1 was not launched")
+        require((row["stream_launches"] > 0) == (row["tier"] == "stream"),
+                f"{label}: tier {row['tier']} but {row['stream_launches']} "
+                "streaming launches")
+        require(row["certified"] >= 0.99 * row["batch"],
+                f"{label}: certified {row['certified']}/{row['batch']}")
+        require(row["referee_disagreements"] == 0,
+                f"{label}: {row['referee_disagreements']} referee "
+                "disagreements")
+    n_stream = sum(r["tier"] == "stream" for r in rows)
+    require(n_stream == 7, f"{n_stream} streaming rows, not 7")
+    return F.fused_palm.stream_launches
+
+
+def phase_probes():
+    """Phase 12: the memory-plan probes, timed with their counters zeroed
+    (the probes' own path), then against their plain versions.  Returns
+    the launches and the numbers of the kernels line (at the largest n)."""
+    import torch
+
+    from qpalm_tpu_torch import probe
+
+    torch.cuda.synchronize()
+    probe.scratch_probe.launches = probe.assembly_probe.launches = 0
+    rows = [probe.measure(n, n * 3 // 2) for n in probe.SIZES]
+    torch.cuda.synchronize()
+    launches = dict(probe_scratch=probe.scratch_probe.launches,
+                    probe_assembly=probe.assembly_probe.launches)
+    for name, count in launches.items():
+        require(count > 0, f"{name} was not launched")
+    for row in rows:
+        n, m, nb = row["n"], row["m"], row["B"]
+        for name, part in probe.against_plain(n, m).items():
+            row[name].update(part)
+        sc, asm = row["scratch"], row["assembly"]
+        require(sc["rel_err"] < 1e-5, f"scratch probe n={n}: rel err "
+                f"{sc['rel_err']:.3e}")
+        require(asm["rel_err"] < 1e-3, f"assembly probe n={n}: rel err "
+                f"{asm['rel_err']:.3e}")
+        # scratch: the fill, 8 rank-1 updates and the row sums, seed in and
+        # row sums out.  assembly: M = A'WA, symmetric, so one triangle
+        # (m n (n + 1)) plus w A (m n) and the row sums (n^2); A and w in, M
+        # out (the plan under test keeps it in global memory) and the sums.
+        sc.update(bound(18 * nb * n * n, 4 * nb * (1 + n)))
+        asm.update(bound(nb * (m * n * (n + 1) + m * n + n * n),
+                         4 * nb * (m * n + m + n * n + n)))
+        say(f"[probe n={n} m={m} B={nb}] scratch {sc['ms']:.3f} ms "
+            f"({sc['GBps']:.0f} GB/s of plan traffic, rel err "
+            f"{sc['rel_err']:.1e}, plain {sc['plain_ms']:.3f} ms); assembly "
+            f"{asm['ms']:.3f} ms ({asm['GBps']:.0f} GB/s, rel err "
+            f"{asm['rel_err']:.1e}, plain {asm['plain_ms']:.3f} ms, einsum "
+            f"{asm['library_ms']:.3f} ms, bound {asm['bound_ms']:.3f} ms)")
+    last = rows[-1]
+    numbers = {
+        f"probe_{name}": dict(
+            max_abs_err=last[name]["max_abs_err"], ms=last[name]["ms"],
+            plain_ms=last[name]["plain_ms"],
+            library_ms=last[name].get("library_ms"),
+            bound_ms=last[name]["bound_ms"], bound_by=last[name]["bound_by"])
+        for name in ("scratch", "assembly")}
+    return launches, numbers
 
 
 def main():
@@ -368,20 +628,31 @@ def main():
     sdiff = ((X - Xp).abs().max() / Xp.abs().max()).item()
     require(res < 1e-4, f"K2 solve residual {res:.3e}")
     require(sdiff < 1e-4, f"K2 solve kernel vs plain rel diff {sdiff:.3e}")
+    # bounds: the factor n^3/3 operations and M in, R out; the solve with n
+    # right-hand sides 2 n^3 and R, b in, x out.  The library calls that
+    # compute the same functions are timed as yardsticks only.
     numbers["chol"] = dict(
         max_abs_err=(R - Rp).abs().max().item(),
         ms=cuda_ms(lambda: chol.cholesky_upper(M_spd), 20),
-        plain_ms=cuda_ms(lambda: chol.cholesky_upper_plain(M_spd), 3))
+        plain_ms=cuda_ms(lambda: chol.cholesky_upper_plain(M_spd), 3),
+        library_ms=cuda_ms(lambda: torch.linalg.cholesky(M_spd, upper=True),
+                           20),
+        **bound(B * N ** 3 / 3, 8 * B * N * N))
     numbers["chol_solve"] = dict(
         max_abs_err=(X - Xp).abs().max().item(),
         ms=cuda_ms(lambda: chol.cholesky_solve(R, eye), 20),
-        plain_ms=cuda_ms(lambda: chol.cholesky_solve_plain(R, eye), 3))
+        plain_ms=cuda_ms(lambda: chol.cholesky_solve_plain(R, eye), 3),
+        library_ms=cuda_ms(lambda: torch.cholesky_solve(eye, R, upper=True),
+                           20),
+        **bound(2 * B * N ** 3, 12 * B * N * N))
     say(f"[K2] factor rel {rel:.2e}, vs plain {diff:.2e}; identity solve "
         f"residual {res:.2e}, vs plain {sdiff:.2e}; factor "
         f"{numbers['chol']['ms']:.4f} ms (plain "
-        f"{numbers['chol']['plain_ms']:.3f}), solve "
+        f"{numbers['chol']['plain_ms']:.3f}, torch.linalg.cholesky "
+        f"{numbers['chol']['library_ms']:.4f}), solve "
         f"{numbers['chol_solve']['ms']:.4f} ms (plain "
-        f"{numbers['chol_solve']['plain_ms']:.3f}) at ({B}, {N}, {N})")
+        f"{numbers['chol_solve']['plain_ms']:.3f}, torch.cholesky_solve "
+        f"{numbers['chol_solve']['library_ms']:.4f}) at ({B}, {N}, {N})")
 
     # ---- 4. K1 against its plain twin ----
     s32 = Settings(dtype="float32", eps_abs=5e-5, eps_rel=5e-5, max_iter=96,
@@ -409,7 +680,8 @@ def main():
         max_abs_err=dx,
         ms=cuda_ms(lambda: F.fused_palm(sd, scal, st, T, s32), 5),
         plain_ms=cuda_ms(lambda: F.fused_palm_plain(sd, scal, st, T, s32),
-                         1))
+                         1),
+        library_ms=None, **k1_bound(B, N, M, k_np[3].sum()))
     solved = int((k_np[2] == 1).sum())
     say(f"[K1] status equal {st_eq.sum()}/{B}, iterations equal "
         f"{it_eq.sum()}/{B}, max|dx| {dx:.2e}; kernel solved {solved}/{B}, "
@@ -464,12 +736,28 @@ def main():
         phase_nonconvex(dev)
     t1 = time.perf_counter()
     probs = make_problems(B, N, M, seed=7)
-    numbers["fused_palm_dual"], launches["fused_palm_dual"] = \
+    numbers["fused_palm_dual"], launches["fused_palm_dual"], s_dual = \
         phase_dual(dev, probs, s32, k_np[0])
     t2 = time.perf_counter()
     phase_chunk_warm(dev, probs, s32, k_np[0], k_np[1])
+    t3 = time.perf_counter()
     say(f"[time] phase 6 {t1 - t0:.1f} s, phase 7 {t2 - t1:.1f} s, phase 8 "
-        f"{time.perf_counter() - t2:.1f} s")
+        f"{t3 - t2:.1f} s")
+
+    # ---- 9-12. the streaming tier, the workloads sweep, the probes ----
+    sd, scal, st = F._prepare(stack_problems(probs, np.float32, device=dev),
+                              s32)
+    phase_stream_headline(sd, scal, st, s32, k_np)
+    t4 = time.perf_counter()
+    numbers["fused_palm_stream"] = phase_stream_full(dev, probs, s_dual)
+    t5 = time.perf_counter()
+    launches["fused_palm_stream"] = phase_sweep(dev)
+    t6 = time.perf_counter()
+    probe_launches, probe_numbers = phase_probes()
+    launches.update(probe_launches)
+    numbers.update(probe_numbers)
+    say(f"[time] phase 9 {t4 - t3:.1f} s, phase 10 {t5 - t4:.1f} s, phase "
+        f"11 {t6 - t5:.1f} s, phase 12 {time.perf_counter() - t6:.1f} s")
 
     csrc = "qpalm_tpu_torch/csrc/"
     table = [
@@ -479,15 +767,22 @@ def main():
          csrc + "fused_palm.cu", "qpalm_tpu/solver/fused.py:186"),
         ("fused_palm_dual", "fused_palm_dual", csrc + "fused_palm.cu",
          "qpalm_tpu/solver/fused.py:186"),
+        ("fused_palm_stream", "fused_palm_stream", csrc + "fused_palm.cu",
+         "qpalm_tpu/solver/fused.py:217"),
         ("chol", "cholesky_upper", csrc + "chol.cu",
          "qpalm_tpu/linalg/pallas_chol.py:98"),
         ("chol_solve", "cholesky_solve", csrc + "chol.cu",
          "qpalm_tpu/linalg/pallas_chol.py:123"),
+        ("probe_scratch", "probe_scratch", csrc + "probe_stream.cu",
+         "scripts/probe_mosaic_scratch.py:83"),
+        ("probe_assembly", "probe_assembly", csrc + "probe_stream.cu",
+         "scripts/probe_mosaic_scratch.py:160"),
     ]
-    say(json.dumps({"kernels": [
+    kernels_line = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
              launches=launches[counter], **numbers[name])
-        for name, counter, src, rep in table]}))
+        for name, counter, src, rep in table]}
+    say(json.dumps(kernels_line))
     say(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,24 +3,37 @@ H100.
 
 The port mirrors qpalm_tpu's module paths and names, so each module has a
 counterpart in the JAX package that it is held against in the tests.  It
-imports torch and numpy, never jax and never qpalm_tpu.  Two paths are
+imports torch and numpy, never jax and never qpalm_tpu.  Three paths are
 ported so far.  The certified batched pipeline of bench.py:
 
     batch.stack_problems -> scaling.scale_data -> solver.fused (kernel K1)
     -> polish_device.polish_batch (kernel K2) -> referee.referee
 
-and the batch front end, for convex and nonconvex batches, with
-dual-objective termination, warm starts and host chunking:
+the batch front end, for convex and nonconvex batches, with dual-objective
+termination, warm starts and host chunking:
 
     batch.solve_batch / solve_many -> stack_problems
     -> [nonconvex] solver.nonconvex.batch_gamma_pins (LOBPCG on scaled Q)
     -> batch._fused_eligible -> solver.fused.solve_batch_fused (kernel K1)
     -> batch.BatchResult
 
-Every Pallas kernel on these paths is a CUDA C++ kernel here (csrc/),
-built by nvcc at first use (_build.py).  A CPU tensor runs each kernel's
-plain PyTorch twin instead; a CUDA tensor runs the kernel or raises.  What
-is not ported raises NotImplementedError naming its ROADMAP.md item.
+and the workloads sweep of scripts/bench_workloads.py, whose larger rows
+run K1's streaming tier:
+
+    sweep.run_row -> stack_problems -> solver.fused (kernel K1, on chip or
+    streaming) -> polish.polish_batch_np -> finish_np.palm_finish_np
+    -> referee.check
+
+Every Pallas kernel of the repository is a CUDA C++ kernel here (csrc/),
+built by nvcc at first use (_build.py); probe.py holds the streaming
+tier's memory-plan probes.  A CPU tensor runs each kernel's plain PyTorch
+twin instead; a CUDA tensor runs the kernel or raises.  What is not ported
+raises NotImplementedError naming its ROADMAP.md item.
+
+The host-side numpy modules of the JAX package (its f64 polish, finisher
+and generators) cannot be imported without JAX (qpalm_tpu/__init__.py
+imports it), so the port keeps its own copies of them (polish.py,
+finish_np.py, workloads.py), held against the originals in the tests.
 
     minimize   0.5 x' Q x + q' x + c
     subject to bmin <= A x <= bmax

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-`kernels()` compiles every csrc/*.cu source of this package with nvcc into
-one shared library with a plain C interface, for Hopper (sm_90a), and loads
-it with ctypes.  The library goes to qpalm_tpu_torch/_build/, named by a
-hash of the sources, so an edited source builds anew and an unchanged one
-is built once.  Nothing is built or loaded at import.
+`kernels()` compiles every csrc/*.cu source of this package with nvcc, one
+nvcc per source, all started together, and links them into one shared
+library with a plain C interface, for Hopper (sm_90a), which it loads with
+ctypes.  The library goes to qpalm_tpu_torch/_build/, named by a hash of
+the sources, so an edited source builds anew and an unchanged one is built
+once.  Nothing is built or loaded at import.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 synchronises nothing, and returns cudaGetLastError(); `check_launch` turns
@@ -27,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 # --fmad=false: no contraction of a*b+c into one rounding, so the kernels
 # round as their plain PyTorch twins do (fmaf() calls stay fused)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,8 +36,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "qp_chol": [_P, _P, _I, _I, _P],
     "qp_chol_solve": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "qp_fused_palm": [_P] * 8 + [_P, _P, _P, _P] + [_I] * 10 + [_P],
+    "qp_fused_palm": [_P] * 8 + [_P] * 5 + [_I] * 11 + [_P],
     "qp_fused_smem_bytes": [_I, _I],
+    "qp_fused_stream_smem_bytes": [_I, _I],
+    "qp_scratch_probe": [_P, _P, _P, _I, _I, _P],
+    "qp_assembly_probe": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -75,15 +79,40 @@ def build(verbose: bool = False) -> tuple[Path, str]:
         return out, ""
     cu, _ = _sources()
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    nvcc = _nvcc()
+    jobs = []
+    for src, obj in zip(cu, objs):
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    try:
+        for cmd, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(text)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{text}")
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out, "".join(log)
 
 
 @functools.cache

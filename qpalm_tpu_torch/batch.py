@@ -4,7 +4,7 @@ padding of qpalm_tpu/api.py:30-65).
     solve_batch / solve_many
       -> stack_problems                  numpy padding, tensors on `device`
       -> [nonconvex] solver.nonconvex.batch_gamma_pins   LOBPCG on scaled Q
-      -> _fused_eligible                 dtype, settings, shared-memory plan
+      -> _fused_eligible                 dtype, settings, K1's memory plan
       -> solver.fused.solve_batch_fused  kernel K1 (its plain twin on a CPU)
       -> BatchResult                     objective on the unscaled data
 
@@ -23,7 +23,8 @@ import torch
 
 from . import constants as C
 from .linalg.chol import SMEM_LIMIT
-from .solver.fused import fused_smem_bytes, solve_batch_fused
+from .solver.fused import (STREAM_N_MAX, fused_smem_bytes, pick_tier,
+                           solve_batch_fused)
 from .solver.nonconvex import batch_gamma_pins
 from .types import QPData, Settings
 
@@ -141,9 +142,10 @@ def _not_fused(settings: Settings, n_pad: int, m_pad: int,
     """Why kernel K1 cannot take this batch, naming the ROADMAP.md item
     that would; None when it can.  The rules for dtype, factorization, time
     limit, refinement and f64 residuals are the reference's
-    (qpalm_tpu/batch.py:152-163); the shape rule is K1's shared-memory plan
-    on the card, applied to the plain twin as well so that both devices
-    take the same batches."""
+    (qpalm_tpu/batch.py:152-163); the shape rule is K1's memory plan on the
+    card (`fused.pick_tier`: on chip, or streaming up to n_pad 352), applied
+    to the plain twin as well so that both devices take the same
+    batches."""
     general = "the general solver loop is not ported yet (ROADMAP.md, " \
         "section 1 item 3)"
     if settings.use_fused == "never":
@@ -162,12 +164,11 @@ def _not_fused(settings: Settings, n_pad: int, m_pad: int,
     for ok, what in rules:
         if not ok:
             return f"{what} needs {general}"
-    need = fused_smem_bytes(n_pad, m_pad)
-    if n_pad % 4 or need > SMEM_LIMIT:
-        return (f"n_pad={n_pad}, m_pad={m_pad} needs {need} bytes of shared "
-                f"memory (limit {SMEM_LIMIT}, n_pad a multiple of 4): the "
-                "streaming tier of K1 is not ported yet (ROADMAP.md, "
-                "section 2, K1 tiers)")
+    if n_pad % 4 or pick_tier(n_pad, m_pad) is None:
+        return (f"n_pad={n_pad}, m_pad={m_pad} has no fused memory plan "
+                f"(n_pad a multiple of 4 and at most {STREAM_N_MAX}, the "
+                f"streaming tier's {fused_smem_bytes(n_pad, m_pad, True)} "
+                f"bytes of shared memory at most {SMEM_LIMIT}): {general}")
     return None
 
 

@@ -1,4 +1,5 @@
-// Device helpers shared by the port's kernels (chol.cu, fused_palm.cu).
+// Device helpers shared by the port's kernels (chol.cu, fused_palm.cu,
+// probe_stream.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -39,5 +40,42 @@ static __device__ void chol_upper_inplace(float* M, float* rt, int n) {
     for (int l = tid; l < n; l += nt)
       M[k * n + l] = l > k ? rt[l] : (l == k ? akk * inv : 0.0f);
     __syncthreads();
+  }
+}
+
+// Schur assembly M = M0 + A' diag(w) A, n x n row-major, n a multiple of 4:
+// one 4x4 tile of M per thread and pass, float4 loads of A's rows, and the
+// m rows of A summed in order into registers that start at M0's tile (at 0
+// when M0 is null).  M0, A, w and M may each lie in shared or global memory
+// (16-byte aligned).  The caller synchronises after.
+static __device__ __forceinline__ void schur_tiles(float* M, const float* M0,
+                                                   const float* A,
+                                                   const float* w, int n,
+                                                   int m) {
+  const int nq = n >> 2;
+  for (int tile = threadIdx.x; tile < nq * nq; tile += blockDim.x) {
+    const int r0 = (tile / nq) * 4, c0 = (tile % nq) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float4 qr = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (M0) qr = *reinterpret_cast<const float4*>(M0 + (r0 + r) * n + c0);
+      acc[r][0] = qr.x; acc[r][1] = qr.y; acc[r][2] = qr.z; acc[r][3] = qr.w;
+    }
+    for (int i = 0; i < m; ++i) {
+      const float wi = w[i];
+      const float4 ar = *reinterpret_cast<const float4*>(A + i * n + r0);
+      const float4 ac = *reinterpret_cast<const float4*>(A + i * n + c0);
+      const float wa[4] = {wi * ar.x, wi * ar.y, wi * ar.z, wi * ar.w};
+      const float bc[4] = {ac.x, ac.y, ac.z, ac.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] += wa[r] * bc[c];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float4*>(M + (r0 + r) * n + c0) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   }
 }

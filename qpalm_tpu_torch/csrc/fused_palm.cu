@@ -1,13 +1,15 @@
 // Kernel K1: T whole P-ALM iterations of a batch of dense QPs in one launch,
-// f32, all state on chip.
+// f32, in two memory tiers.
 //
 // Replaces the Pallas kernel of qpalm_tpu/solver/fused.py (`_make_kernel`'s
-// inner `kernel`, launched per 128-lane block by `fused_chunk`) for its
-// all-on-chip tier: residuals and termination norms, both infeasibility
-// certificates, sigma / y / inner-tolerance updates, dual-objective
-// termination (a Cholesky of Q on outer trips), the gamma step or boost
-// (convex) or the eps_k ladder under per-problem gamma pins (nonconvex),
-// Schur assembly M = Q + A'diag(w)A + I/g with its Gershgorin bound,
+// inner `kernel`, launched per 128-lane block by `fused_chunk`) in both of
+// its memory tiers, all on chip (qa_panel = 0) and streaming (qa_panel > 0,
+// fused.py:217-284, 390-425, 443-454): residuals and termination norms, both
+// infeasibility certificates, sigma / y / inner-tolerance updates,
+// dual-objective termination (a Cholesky of Q on outer trips), the gamma
+// step or boost (convex) or the eps_k ladder under per-problem gamma pins
+// (nonconvex), Schur assembly M = Q + A'diag(w)A + I/g with its Gershgorin
+// bound,
 // Cholesky and two triangular solves, Qd and Ad, the 26-step
 // Newton/bisection linesearch, and the masked state writes.  It computes
 // what fused.py:538-906 computes; the plain twin is
@@ -32,6 +34,20 @@
 // their scratch, so each costs one barrier; the triangular solves run in one
 // warp without block barriers; the Schur assembly (the only O(n^2 m) step)
 // uses 4x4 register tiles over float4 shared loads.
+//
+// The streaming tier (template STREAM) takes the shapes whose on-chip plan
+// exceeds a block's 227 KB: the Schur matrix alone is n^2 x 4 B, 496 KB at
+// n=352.  The simplest plan that is right: Q and A are read straight from
+// global memory (L2), M lives in a per-problem global scratch that the
+// wrapper allocates, and only the vectors and the reduction scratch stay in
+// shared memory (52 KB at n = m = 352).  __syncthreads() orders a block's
+// global writes as it orders its shared ones, so the Cholesky's rank-1
+// updates and the warp solves run unchanged on a global M.  The tier follows
+// the reference's streaming assembly order, not the on-chip one: the tiles
+// start at 0, Gershgorin reads |A'WA| directly, then M += Q, then the
+// diagonal += 1/gamma; the two orders round differently.  It is bound by L2
+// traffic and latency: every Schur tile pass re-reads A's rows and every
+// Cholesky step reads and writes M's trailing triangle in global memory.
 //
 // Numerics.  No fast math.  Reductions are warp butterflies plus a fixed
 // combine of the warp partials, never atomics, so reruns are bit-identical.
@@ -147,25 +163,28 @@ __device__ __forceinline__ void chol_solve_warp(const float* M, float* d,
   }
 }
 
+template <bool STREAM>
 __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
     const float* __restrict__ gQ, const float* __restrict__ gA,
     const float* __restrict__ gq, const float* __restrict__ gbmin,
     const float* __restrict__ gbmax, const float* __restrict__ gDinv,
     const float* __restrict__ gEinv, const float* __restrict__ gcinv,
     float* __restrict__ gnst, float* __restrict__ gmst,
-    float* __restrict__ gsc, const FSet fs, const int n, const int m,
-    const int T, const int inner_max_iter, const int max_iter,
-    const int scaling_on, const int prox, const int nonconvex,
-    const int enable_dual) {
+    float* __restrict__ gsc, float* __restrict__ gM, const FSet fs,
+    const int n, const int m, const int T, const int inner_max_iter,
+    const int max_iter, const int scaling_on, const int prox,
+    const int nonconvex, const int enable_dual) {
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t pb = blockIdx.x;
 
-  // ---- shared-memory layout (qp_fused_smem_bytes counts it) ----
-  float* Q = sm;
-  float* A = Q + n * n;
-  float* M = A + m * n;
-  float* nv = M + n * n;  // 18 n-vectors; the first 8 are nst's rows
+  // ---- memory layout (qp_fused_smem_bytes and qp_fused_stream_smem_bytes
+  // count the shared part): on chip, Q, A and M lead the shared memory; in
+  // the streaming tier they are this problem's slices of global memory ----
+  const float* Q = STREAM ? gQ + pb * n * n : sm;
+  const float* A = STREAM ? gA + pb * m * n : sm + n * n;
+  float* M = STREAM ? gM + pb * n * n : sm + n * n + m * n;
+  float* nv = STREAM ? sm : M + n * n;  // 18 n-vectors; 8 are nst's rows
   float* x = nv;
   float* x0 = nv + n;
   float* Qx = nv + 2 * n;
@@ -207,11 +226,11 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
   float* red = mv + 19 * m;  // 2 * RED_K * NWARP
 
   // ---- load ----
-  {
+  if (!STREAM) {
     const float4* gQ4 = reinterpret_cast<const float4*>(gQ + pb * n * n);
     const float4* gA4 = reinterpret_cast<const float4*>(gA + pb * m * n);
-    float4* Q4 = reinterpret_cast<float4*>(Q);
-    float4* A4 = reinterpret_cast<float4*>(A);
+    float4* Q4 = reinterpret_cast<float4*>(sm);
+    float4* A4 = reinterpret_cast<float4*>(sm + n * n);
     for (int e = tid; e < n * n / 4; e += NT) Q4[e] = gQ4[e];
     for (int e = tid; e < m * n / 4; e += NT) A4[e] = gA4[e];
   }
@@ -471,41 +490,26 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
     // ---- inner Newton step (qpalm.c:662-678) ----
     if (b_inner) {
       for (int j = tid; j < n; j += NT) d[j] = -dphi[j];
-      // M = Q + A' diag(w) A, one 4x4 tile of M per thread and pass
-      const int nq = n >> 2;
-      for (int tile = tid; tile < nq * nq; tile += NT) {
-        const int r0 = (tile / nq) * 4, c0 = (tile % nq) * 4;
-        float acc[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float4 qr = *reinterpret_cast<const float4*>(Q + (r0 + r) * n + c0);
-          acc[r][0] = qr.x; acc[r][1] = qr.y; acc[r][2] = qr.z; acc[r][3] = qr.w;
-        }
-        for (int i = 0; i < m; ++i) {
-          const float wi = w[i];
-          const float4 ar = *reinterpret_cast<const float4*>(A + i * n + r0);
-          const float4 ac = *reinterpret_cast<const float4*>(A + i * n + c0);
-          const float wa[4] = {wi * ar.x, wi * ar.y, wi * ar.z, wi * ar.w};
-          const float bc[4] = {ac.x, ac.y, ac.z, ac.w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] += wa[r] * bc[c];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          *reinterpret_cast<float4*>(M + (r0 + r) * n + c0) =
-              make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      }
+      // on chip M = Q + A' diag(w) A; streaming M = A' diag(w) A
+      schur_tiles(M, STREAM ? nullptr : Q, A, w, n, m);
       __syncthreads();
-      // Gershgorin bound of A'WA = M - Q by rows, then M += I / gamma
+      // Gershgorin bound of A'WA by rows (on chip M - Q, streaming M itself,
+      // which then gets + Q), then M += I / gamma
       float gersh_new;
       {
         const float ginv = prox ? 1.0f / gamma : 0.0f;
         float v[1] = {0.0f};
         for (int j = warp; j < n; j += NWARP) {
           float s = 0.0f;
-          for (int k = lane; k < n; k += 32) s += fabsf(M[j * n + k] - Q[j * n + k]);
+          for (int k = lane; k < n; k += 32) {
+            if (STREAM) {
+              const float awa = M[j * n + k];
+              s += fabsf(awa);
+              M[j * n + k] = awa + Q[j * n + k];
+            } else {
+              s += fabsf(M[j * n + k] - Q[j * n + k]);
+            }
+          }
           v[0] = nmax(v[0], warp_sum(s));
           if (lane == (j & 31)) M[j * n + j] += ginv;
         }
@@ -661,24 +665,42 @@ extern "C" int qp_fused_smem_bytes(int n, int m) {
                 19 * (size_t)m + 2 * RED_K * NWARP));
 }
 
+extern "C" int qp_fused_stream_smem_bytes(int n, int m) {
+  return (int)(sizeof(float) * (18 * (size_t)n + 19 * (size_t)m +
+                                2 * RED_K * NWARP));
+}
+
+// tier 0 runs the on-chip kernel (M unused, may be null); tier 1 the
+// streaming one, with M a (B, n, n) float scratch.
 extern "C" int qp_fused_palm(const float* Q, const float* A, const float* q,
                              const float* bmin, const float* bmax,
                              const float* Dinv, const float* Einv,
                              const float* cinv, float* nst, float* mst,
-                             float* sc, const float* fset, int B, int n, int m,
-                             int T, int inner_max_iter, int max_iter,
-                             int scaling_on, int proximal, int nonconvex,
-                             int enable_dual, void* stream) {
+                             float* sc, float* M, const float* fset, int B,
+                             int n, int m, int T, int inner_max_iter,
+                             int max_iter, int scaling_on, int proximal,
+                             int nonconvex, int enable_dual, int tier,
+                             void* stream) {
   if (B == 0 || T == 0) return 0;
-  if (n % 4) return (int)cudaErrorInvalidValue;
+  if (n % 4 || (tier && (M == nullptr || (size_t)M % 16)))
+    return (int)cudaErrorInvalidValue;
   FSet fs;
   memcpy(&fs, fset, sizeof(FSet));
-  const int smem = qp_fused_smem_bytes(n, m);
+  const int smem =
+      tier ? qp_fused_stream_smem_bytes(n, m) : qp_fused_smem_bytes(n, m);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_palm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tier ? &fused_palm_kernel<true> : &fused_palm_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  fused_palm_kernel<<<B, NT, smem, (cudaStream_t)stream>>>(
-      Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, fs, n, m, T,
-      inner_max_iter, max_iter, scaling_on, proximal, nonconvex, enable_dual);
+  if (tier)
+    fused_palm_kernel<true><<<B, NT, smem, (cudaStream_t)stream>>>(
+        Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, M, fs, n, m, T,
+        inner_max_iter, max_iter, scaling_on, proximal, nonconvex,
+        enable_dual);
+  else
+    fused_palm_kernel<false><<<B, NT, smem, (cudaStream_t)stream>>>(
+        Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, M, fs, n, m, T,
+        inner_max_iter, max_iter, scaling_on, proximal, nonconvex,
+        enable_dual);
   return (int)cudaGetLastError();
 }

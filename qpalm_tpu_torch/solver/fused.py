@@ -1,13 +1,16 @@
 """Kernel K1: the whole P-ALM iteration loop of a batch in one launch.
 
 Replaces the Pallas kernel of qpalm_tpu/solver/fused.py (`_make_kernel`'s
-inner `kernel`, launched per 128-lane block by `fused_chunk`) for its
-all-on-chip tier: convex (proximal or plain), nonconvex under per-problem
-gamma pins, and dual-objective termination.  The CUDA source is
-csrc/fused_palm.cu: one block of threads per problem, with Q, A, the Schur
-matrix and the state in shared memory.  `fused_palm_plain` below is its
-plain twin; it follows fused.py:538-906 operation by operation on
-batch-first tensors, and is what a CPU tensor runs.
+inner `kernel`, launched per 128-lane block by `fused_chunk`) in both of its
+memory tiers: convex (proximal or plain), nonconvex under per-problem gamma
+pins, and dual-objective termination.  The CUDA source is
+csrc/fused_palm.cu: one block of threads per problem.  In the on-chip tier
+Q, A, the Schur matrix and the state sit in shared memory; in the streaming
+tier, for shapes whose on-chip plan exceeds a block's shared memory, Q and
+A are read from global memory and the Schur matrix lives in a global
+scratch (`pick_tier` chooses).  `fused_palm_plain` below is its plain twin;
+it follows fused.py:538-906 operation by operation on batch-first tensors,
+and is what a CPU tensor runs.
 
 Around the kernel sits the host glue of the reference: `_prepare` (cast,
 Ruiz scaling, initial state), `_init_fused` (cold and warm start, gamma
@@ -49,12 +52,55 @@ class FusedState(NamedTuple):
     sc: torch.Tensor   # (B, 18)
 
 
-def fused_smem_bytes(n: int, m: int) -> int:
-    """Shared memory one block of K1 uses at (n, m): Q, A, the Schur matrix
-    M, 18 n-vectors, 19 m-vectors and the reduction scratch.  It mirrors
-    fused_palm.cu's qp_fused_smem_bytes, so the plan can be checked where
-    the library cannot be built."""
-    return 4 * (2 * n * n + m * n + 18 * n + 19 * m + 2 * 12 * 8)
+# Largest padded n the streaming tier takes.  This is a routing rule, not a
+# limit of the card: past it the reference leaves its fused kernel for the
+# general solver loop (qpalm_tpu/solver/fused.py:65 STREAM_WALL, reached from
+# qpalm_tpu/batch.py:162), which the port has not ported yet (ROADMAP.md,
+# section 1 item 3), so the port refuses those shapes instead.
+STREAM_N_MAX = 352
+
+
+def fused_smem_bytes(n: int, m: int, stream: bool = False) -> int:
+    """Shared memory one block of K1 uses at (n, m).  On chip: Q, A, the
+    Schur matrix M, 18 n-vectors, 19 m-vectors and the reduction scratch;
+    streaming: the vectors and the scratch only.  It mirrors fused_palm.cu's
+    qp_fused_smem_bytes and qp_fused_stream_smem_bytes, so the plan can be
+    checked where the library cannot be built."""
+    matrices = 0 if stream else 2 * n * n + m * n
+    return 4 * (matrices + 18 * n + 19 * m + 2 * 12 * 8)
+
+
+def pick_tier(n: int, m: int):
+    """K1's memory plan for a padded (n, m) shape, the counterpart of the
+    reference's pick_qa_panel (fused.py:85-142) re-derived for a block's
+    227 KB of shared memory: "smem" when Q, A, M and the state fit on chip,
+    "stream" when only the state does and n <= STREAM_N_MAX, else None (no
+    fused plan: the general loop's shapes)."""
+    if fused_smem_bytes(n, m) <= SMEM_LIMIT:
+        return "smem"
+    if n <= STREAM_N_MAX and fused_smem_bytes(n, m, True) <= SMEM_LIMIT:
+        return "stream"
+    return None
+
+
+def _tier(qa_panel: int, n: int, m: int) -> str:
+    """The tier a `qa_panel` argument selects, with the reference's meaning
+    (fused.py:944-945): -2 from the shape, 0 on chip, > 0 streaming.  The
+    panel height itself has no counterpart: the streaming kernel reads Q
+    and A straight from global memory."""
+    if qa_panel == -2:
+        tier = pick_tier(n, m)
+        if tier is None:
+            raise NotImplementedError(
+                f"fused_palm: n={n}, m={m} has no fused memory plan (n over "
+                f"{STREAM_N_MAX}, or the streaming tier's vectors over "
+                f"{SMEM_LIMIT} bytes of shared memory): the reference runs "
+                "the general solver loop there, which is not ported yet "
+                "(ROADMAP.md, section 1 item 3)")
+        return tier
+    if qa_panel < 0:
+        raise ValueError(f"qa_panel must be -2, 0 or positive, got {qa_panel}")
+    return "stream" if qa_panel else "smem"
 
 
 def _float_settings(s: Settings) -> np.ndarray:
@@ -202,9 +248,10 @@ def _linesearch_plain(eta, beta, sqs, Ad, Ax, y, sig, bmin, bmax):
 
 
 def fused_palm_plain(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
-                     s: Settings) -> FusedState:
+                     s: Settings, stream: bool = False) -> FusedState:
     """Plain twin of the CUDA kernel: T iterations on every problem of the
-    batch in lockstep, state written under masks (fused.py:538-906)."""
+    batch in lockstep, state written under masks (fused.py:538-906).
+    `stream` assembles the Schur matrix in the streaming tier's order."""
     Q, A, q, bmin, bmax = data.Q, data.A, data.q, data.bmin, data.bmax
     Dinv, Einv = scal.Dinv, scal.Einv
     cinv = scal.cinv[:, None]
@@ -401,10 +448,16 @@ def fused_palm_plain(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
 
         # Newton direction for every lane, applied under the b_inner mask
         w = active * sig_new
-        M = Q
+        # on chip M = Q + A'WA and Gershgorin reads M - Q; streaming
+        # (fused.py:390-425) M = A'WA, Gershgorin reads it, then M += Q
+        M = torch.zeros_like(Q) if stream else Q
         for i in range(A.shape[1]):
             M = M + (w[:, i, None] * A[:, i])[:, :, None] * A[:, i, None, :]
-        gersh = _lane_sum((M - Q).abs()).amax(1, keepdim=True)
+        if stream:
+            gersh = _lane_sum(M.abs()).amax(1, keepdim=True)
+            M = M + Q
+        else:
+            gersh = _lane_sum((M - Q).abs()).amax(1, keepdim=True)
         if prox:
             M = M + eye * (1.0 / gamma_new)[:, :, None]
         d = _solve_kernel_order(cholesky_upper_plain(M), -dphi)
@@ -468,18 +521,24 @@ def fused_palm_plain(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
 
 
 def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
-               s: Settings) -> FusedState:
+               s: Settings, qa_panel: int = -2) -> FusedState:
     """Run T P-ALM iterations on scaled f32 data: the plain twin for CPU
-    tensors, the CUDA kernel (one launch) for CUDA tensors."""
+    tensors, the CUDA kernel (one launch) for CUDA tensors, in the memory
+    tier `qa_panel` selects (-2 from the shape, 0 on chip, > 0 streaming).
+    `fused_palm.launches` counts launches of either tier,
+    `fused_palm.stream_launches` those of the streaming tier.  While
+    `fused_palm.events` is a list, each launch appends to it the CUDA
+    events recorded just before and just after it."""
+    B, n, _ = data.Q.shape
+    m = data.A.shape[1]
+    stream = _tier(qa_panel, n, m) == "stream"
     if data.Q.device.type == "cpu":
-        return fused_palm_plain(data, scal, st, T, s)
+        return fused_palm_plain(data, scal, st, T, s, stream)
     tensors = (*data[:5], scal.Dinv, scal.Einv, scal.cinv, *st)
     for t in tensors:
         if t.dtype != torch.float32 or not t.is_cuda:
             raise ValueError("fused_palm: every input must be a CUDA "
                              f"float32 tensor, got {t.dtype} on {t.device}")
-    B, n, _ = data.Q.shape
-    m = data.A.shape[1]
     shapes = [(B, n, n), (B, m, n), (B, n), (B, m), (B, m), (B, n), (B, m),
               (B,), (B, _N_ROWS, n), (B, _M_ROWS, m), (B, _SC_ROWS)]
     if [tuple(t.shape) for t in tensors] != shapes:
@@ -488,31 +547,45 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
     if n % 4:
         raise ValueError(f"fused_palm: n={n} must be a multiple of 4 "
                          "(stack_problems pads to 8)")
-    need = fused_smem_bytes(n, m)
+    need = fused_smem_bytes(n, m, stream)
     if need > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"fused_palm: n={n}, m={m} needs {need} bytes of shared memory, "
-            f"over {SMEM_LIMIT}; the streaming tier is not ported yet "
-            "(ROADMAP.md, section 2, K1 tiers)")
-    # Q and A are read as float4: 16-byte aligned, contiguous copies
+        raise ValueError(
+            f"fused_palm: the {'streaming' if stream else 'on-chip'} tier "
+            f"at n={n}, m={m} needs {need} bytes of shared memory, over "
+            f"{SMEM_LIMIT}")
+    # Q, A and the streaming tier's scratch M are read as float4: 16-byte
+    # aligned, contiguous copies (torch.empty allocations are aligned)
     ins = [t.contiguous() for t in tensors[:8]]
     ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
     out = FusedState(*(t.clone(memory_format=torch.contiguous_format)
                        for t in st))
+    scratch = torch.empty((B, n, n), dtype=torch.float32,
+                          device=data.Q.device) if stream else None
     fset = _float_settings(s)
+    events = fused_palm.events
     with torch.cuda.device(data.Q.device):
+        if events is not None:
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
         rc = kernels().qp_fused_palm(
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out),
-            fset.ctypes.data, B, n, m, int(T), int(s.inner_max_iter),
-            int(s.max_iter), int(bool(s.scaling)), int(bool(s.proximal)),
+            scratch.data_ptr() if stream else None, fset.ctypes.data, B, n,
+            m, int(T), int(s.inner_max_iter), int(s.max_iter),
+            int(bool(s.scaling)), int(bool(s.proximal)),
             int(bool(s.nonconvex)), int(bool(s.enable_dual_termination)),
-            torch.cuda.current_stream().cuda_stream)
+            int(stream), torch.cuda.current_stream().cuda_stream)
+        if events is not None:
+            events[-1][1].record()
     check_launch("qp_fused_palm", rc)
     fused_palm.launches += 1
+    fused_palm.stream_launches += int(stream)
     return out
 
 
 fused_palm.launches = 0
+fused_palm.stream_launches = 0
+fused_palm.events = None
 
 
 def _tensor(a, like: torch.Tensor) -> torch.Tensor:
@@ -610,7 +683,7 @@ def _finish(sdata: QPData, scal: ScalingInfo, st: FusedState):
 
 def solve_batch_fused(data: QPData, settings: Settings, x_ws=None,
                       y_ws=None, chunk: int = 0, gamma_init=None,
-                      gamma_max=None):
+                      gamma_max=None, qa_panel: int = -2):
     """Solve a stacked batch (leading batch axis, as from stack_problems)
     with kernel K1 on the batch's device (fused.py:1282).  Returns
     (x (B,n), y (B,m), status (B,), iterations (B,), pri_norm (B,),
@@ -620,7 +693,8 @@ def solve_batch_fused(data: QPData, settings: Settings, x_ws=None,
     `chunk` 0 runs max_iter iterations in one launch; a positive chunk runs
     launches of `chunk` iterations with a host early-exit check between
     them.  For `settings.nonconvex` pass the per-problem pins of
-    `nonconvex.batch_gamma_pins` as `gamma_init`/`gamma_max`."""
+    `nonconvex.batch_gamma_pins` as `gamma_init`/`gamma_max`.  `qa_panel`
+    selects K1's memory tier as in `fused_palm`."""
     if chunk < 0:
         raise ValueError(f"chunk must be >= 0, got {chunk}")
     if settings.nonconvex:
@@ -630,12 +704,12 @@ def solve_batch_fused(data: QPData, settings: Settings, x_ws=None,
                                gamma_max)
     max_iter = int(settings.max_iter)
     if not chunk:
-        st = fused_palm(sdata, scal, st, max_iter, settings)
+        st = fused_palm(sdata, scal, st, max_iter, settings, qa_panel)
         return _finish(sdata, scal, st)
     done_iters = 0
     while done_iters < max_iter:
         step = min(int(chunk), max_iter - done_iters)
-        st = fused_palm(sdata, scal, st, step, settings)
+        st = fused_palm(sdata, scal, st, step, settings, qa_panel)
         done_iters += step
         if done_iters < max_iter and bool((st.sc[:, _DONE] > 0.5).all()):
             break

@@ -198,16 +198,17 @@ def test_fused_eligible_rules(kw, eligible):
 
 
 @pytest.mark.parametrize("n_pad,m_pad,eligible", [
-    (64, 96, True), (160, 8, True), (168, 8, False), (128, 192, False),
-    (352, 528, False), (62, 96, False)])
+    (64, 96, True), (160, 8, True), (168, 8, True), (128, 192, True),
+    (352, 528, True), (62, 96, False), (360, 8, False), (352, 3000, False)])
 def test_fused_eligible_shared_memory_plan(n_pad, m_pad, eligible):
-    """K1 keeps Q, A and M in one block's 227 KB of shared memory: n_pad =
-    160 fits with few rows, 168 does not; the streaming tier that would take
-    the larger shapes is not ported (ROADMAP.md section 2)."""
+    """K1 keeps Q, A and M in one block's 227 KB of shared memory up to
+    n_pad = 160 with few rows; past that its streaming tier takes the shape
+    up to n_pad 352, as long as its vectors fit.  The rest is the general
+    loop's (ROADMAP.md section 1 item 3)."""
     s = Settings(**S32)
     assert _fused_eligible(s, n_pad, m_pad, "cpu") is eligible
     if not eligible:
-        with pytest.raises(ValueError, match="section 2, K1 tiers"):
+        with pytest.raises(ValueError, match="section 1 item 3"):
             _fused_eligible(s.replace(use_fused="always"), n_pad, m_pad,
                             "cuda")
 

@@ -216,15 +216,15 @@ def test_plain_twin_chunked_keeps_certificates():
 def test_out_of_slice_features_raise():
     """What the port does not run yet raises NotImplementedError naming its
     ROADMAP.md item, with no fallback: the general solver loop
-    (use_fused='never', or a setting only that loop takes), K1's streaming
-    tier (a shape over its shared-memory plan) and the f64 escalation."""
+    (use_fused='never', a setting only that loop takes, or a shape past
+    K1's streaming tier) and the f64 escalation."""
     probs = [random_convex_qp(4, 6, seed=1)]
     for kw in (dict(use_fused="never"), dict(max_refine=2),
                dict(time_limit=10.0)):
         with pytest.raises(NotImplementedError, match="section 1 item 3"):
             solve_batch(probs, _settings(2, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="section 2, K1 tiers"):
-        solve_batch([random_convex_qp(200, 8, seed=2)], _settings(2),
+    with pytest.raises(NotImplementedError, match="section 1 item 3"):
+        solve_batch([random_convex_qp(360, 8, seed=2)], _settings(2),
                     device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_many(probs, _settings(2), escalate=True, device="cpu")
@@ -298,3 +298,5 @@ def test_cuda_smem_mirror_matches_library():
     lib = kernels()
     for n, m in ((8, 8), (16, 24), (64, 96), (64, 80), (96, 144), (200, 8)):
         assert F.fused_smem_bytes(n, m) == lib.qp_fused_smem_bytes(n, m)
+        assert F.fused_smem_bytes(n, m, True) == \
+            lib.qp_fused_stream_smem_bytes(n, m)

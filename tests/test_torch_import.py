@@ -16,6 +16,8 @@ PORT_MODULES = [
     "qpalm_tpu_torch.polish_device", "qpalm_tpu_torch.referee",
     "qpalm_tpu_torch.workloads", "qpalm_tpu_torch.precision",
     "qpalm_tpu_torch.solver.nonconvex", "qpalm_tpu_torch.linalg.dense",
+    "qpalm_tpu_torch.polish", "qpalm_tpu_torch.finish_np",
+    "qpalm_tpu_torch.sweep", "qpalm_tpu_torch.probe",
 ]
 
 

@@ -1,0 +1,185 @@
+"""K1's streaming tier in the PyTorch port: the plain twin forced to stream
+against qpalm_tpu.solver.fused.solve_batch_fused(interpret=True,
+qa_panel=8) at the bars of tests/test_fused.py:60-93, against the port's
+on-chip twin, the memory plan and routing of the workloads sweep's rows,
+and (on a card) the CUDA streaming kernel against its twin."""
+
+import numpy as np
+import pytest
+import torch
+
+from helpers import random_convex_qp
+from qpalm_tpu_torch import constants as C
+from qpalm_tpu_torch.batch import _not_fused, solve_batch, stack_problems
+from qpalm_tpu_torch.solver import fused as F
+from qpalm_tpu_torch.sweep import ROWS, row_problems
+from qpalm_tpu_torch.types import Settings
+
+B = 128  # the reference kernel takes whole 128-lane blocks
+
+
+def _settings(scaling=2, **kw):
+    base = dict(dtype="float32", eps_abs=1e-4, eps_rel=1e-4, max_iter=100,
+                scaling=scaling, max_refine=0, delta=10.0)
+    return Settings(**{**base, **kw})
+
+
+def _probs(seed):
+    return [random_convex_qp(16, 24, seed=seed + i, density=0.5)
+            for i in range(B)]
+
+
+def _reference_stream(probs, s):
+    """The reference's streaming kernel (P = 8 row panels) in interpret
+    mode, as numpy arrays."""
+    import qpalm_tpu
+    from qpalm_tpu.batch import stack_problems as jstack
+    from qpalm_tpu.solver.fused import solve_batch_fused as jsolve
+
+    js = qpalm_tpu.Settings(**{k: getattr(s, k) for k in (
+        "dtype", "eps_abs", "eps_rel", "max_iter", "scaling", "max_refine",
+        "delta", "enable_dual_termination", "dual_objective_limit")})
+    return [np.asarray(a) for a in jsolve(jstack(probs, np.float32), js,
+                                          interpret=True, qa_panel=8)]
+
+
+def _port(probs, s, qa_panel):
+    return [a.numpy() for a in F.solve_batch_fused(
+        stack_problems(probs, np.float32), s, qa_panel=qa_panel)]
+
+
+def _assert_parity(ref, got):
+    """tests/test_fused.py's bars: statuses 128/128, iteration counts on
+    at least 126/128, x and y where both finished (solved or
+    dual-terminated) in the same count."""
+    assert np.array_equal(got[2], ref[2])
+    same = got[3] == ref[3]
+    assert same.sum() >= B - 2, np.where(~same)
+    same &= np.isin(ref[2], (C.QPALM_SOLVED, C.QPALM_DUAL_TERMINATED))
+    assert np.max(np.abs(got[0] - ref[0])[same]) < 1e-4
+    assert np.max(np.abs(got[1] - ref[1])[same]) < 1e-3
+
+
+@pytest.mark.parametrize("case", ["scaling2", "scaling0", "dual"])
+def test_stream_twin_matches_reference_stream_kernel(case):
+    """Seeds and settings of tests/test_fused.py:60-93.  The streaming twin
+    is also held against the port's on-chip twin: same statuses and counts
+    (the two assembly orders round apart, so x only to f32 rounding)."""
+    pytest.importorskip("jax")
+    if case == "dual":
+        probs = _probs(91)
+        s = _settings(2, enable_dual_termination=True,
+                      dual_objective_limit=-1e9)
+    else:
+        probs = _probs(61)
+        s = _settings(2 if case == "scaling2" else 0)
+    ref = _reference_stream(probs, s)
+    got = _port(probs, s, qa_panel=8)
+    assert np.all(ref[2] == (C.QPALM_DUAL_TERMINATED if case == "dual"
+                             else C.QPALM_SOLVED))
+    _assert_parity(ref, got)
+    smem = _port(probs, s, qa_panel=0)
+    assert np.array_equal(smem[2], got[2])
+    assert np.array_equal(smem[3], got[3])
+    assert np.max(np.abs(smem[0] - got[0])) < 1e-4
+
+
+def test_stream_order_differs_from_on_chip_order():
+    """The tier switch reaches the assembly: the two orders agree on every
+    status and count but not bit for bit."""
+    probs = _probs(61)[:16]
+    s = _settings(2)
+    a, b = _port(probs, s, qa_panel=0), _port(probs, s, qa_panel=8)
+    assert np.array_equal(a[3], b[3])
+    assert not np.array_equal(a[0], b[0])
+
+
+def _expected_tier(family, size):
+    """Tiers of the sweep's rows from the reference's plan: randomQP
+    n <= 128, lasso(20) and portfolio(60) fit on chip."""
+    on_chip = {("randomQP", n) for n in (20, 40, 60, 80, 100, 128)} | {
+        ("lasso", 20), ("portfolio", 60)}
+    return "smem" if (family, size) in on_chip else "stream"
+
+
+@pytest.mark.parametrize("family,size", ROWS)
+def test_sweep_rows_are_admitted_with_their_tier(family, size):
+    Q, A = row_problems(family, size, batch=1)[0][:2]
+    n_pad = -(-Q.shape[0] // 8) * 8
+    m_pad = -(-A.shape[0] // 8) * 8
+    s = _settings(2, max_iter=400)
+    for device in ("cpu", "cuda"):
+        assert _not_fused(s, n_pad, m_pad, device) is None
+    assert F.pick_tier(n_pad, m_pad) == _expected_tier(family, size)
+
+
+def test_shapes_past_the_streaming_rule_raise():
+    """n_pad 360 has no fused plan: the reference runs its general loop
+    there (ROADMAP.md section 1 item 3), so the port raises."""
+    assert F.pick_tier(352, 352) == "stream"
+    assert F.pick_tier(360, 360) is None
+    probs = [random_convex_qp(360, 360, seed=3)]
+    with pytest.raises(NotImplementedError, match="section 1 item 3"):
+        solve_batch(probs, _settings(2), device="cpu")
+    data = stack_problems(probs, np.float32)
+    with pytest.raises(NotImplementedError, match="section 1 item 3"):
+        F.solve_batch_fused(data, _settings(2))
+    with pytest.raises(ValueError, match="qa_panel"):
+        F.solve_batch_fused(data, _settings(2), qa_panel=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,tier", [
+    (16, 24, "convex"), (16, 24, "plain"), (16, 24, "dual"),
+    (8, 8, "nonconvex"), (16, 24, "warm"), (160, 160, "convex")])
+def test_cuda_stream_kernel_matches_plain_twin(n, m, tier):
+    """Every flag of the on-chip tier in the streaming one: proximal or
+    plain, dual termination, nonconvex pins, warm start; and launches of a
+    few iterations resume exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from qpalm_tpu_torch.solver.nonconvex import batch_gamma_pins
+
+    pins = (None, None)
+    kw = {}
+    ws = dict(x_ws=None, y_ws=None)
+    if tier == "nonconvex":
+        rng = np.random.default_rng(42)
+        probs = []
+        for _ in range(32):
+            Q = rng.standard_normal((n, n))
+            probs.append((0.5 * (Q + Q.T) - 1.5 * np.eye(n), np.eye(n),
+                          rng.standard_normal(n), -np.ones(n), np.ones(n)))
+        kw = dict(nonconvex=True, max_iter=400)
+    else:
+        probs = [random_convex_qp(n, m, seed=360 + i, density=0.5)
+                 for i in range(32)]
+        if tier == "dual":
+            kw = dict(enable_dual_termination=True, dual_objective_limit=-1.0)
+        if tier == "plain":
+            kw = dict(proximal=False)
+    s = _settings(2, **kw)
+    data = stack_problems(probs, np.float32, device="cuda")
+    if tier == "nonconvex":
+        pins = batch_gamma_pins(data, s)
+        s = s.replace(proximal=True)
+    if tier == "warm":
+        cold = F.solve_batch_fused(data, s, qa_panel=8)
+        ws = dict(x_ws=1.01 * cold[0], y_ws=cold[1])
+    before = F.fused_palm.stream_launches
+    got = [a.cpu().numpy() for a in F.solve_batch_fused(
+        data, s, gamma_init=pins[0], gamma_max=pins[1], qa_panel=8, **ws)]
+    assert F.fused_palm.stream_launches == before + 1
+    sd, scal, st = F._prepare(data, s, gamma_init=pins[0],
+                              gamma_max=pins[1], **ws)
+    plain = [a.cpu().numpy() for a in F._finish(sd, scal, F.fused_palm_plain(
+        sd, scal, st, s.max_iter, s, stream=True))]
+    assert np.array_equal(got[2], plain[2])
+    same = got[3] == plain[3]
+    assert same.sum() >= 30
+    assert np.max(np.abs(got[0] - plain[0])[same]) < 1e-4
+    chunked = [a.cpu().numpy() for a in F.solve_batch_fused(
+        data, s, gamma_init=pins[0], gamma_max=pins[1], qa_panel=8,
+        chunk=7, **ws)]
+    for a, b in zip(got, chunked):
+        assert np.array_equal(a, b, equal_nan=True)
