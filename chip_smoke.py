@@ -32,10 +32,14 @@ Phases, each asserting, any failure exiting non-zero:
      bars, iteration counts at STREAM_COUNT_BAR), and against its
      streaming twin;
  10. the streaming kernel at full width (randomQP n=352, B=128, the sweep's
-     settings) against its twin for 30 iterations from the same state,
-     three launches of 10 iterations bit-identical to one of 30, and one
-     nonconvex (BOXQP-d n=16) and one dual-terminating (phase 7's limit)
-     streaming launch against the twin;
+     settings) against its twin for 30 iterations from the same state, held
+     bit for bit (every sc row of every problem, x, the whole state), three
+     launches of 10 iterations bit-identical to one of 30, the split of a
+     streaming iteration by the kernel's own cycle counters (assembly,
+     Gershgorin + Q, Cholesky panels and trailing updates, solves, the
+     rest), and one nonconvex
+     (BOXQP-d n=16) and one dual-terminating (phase 7's limit) streaming
+     launch against the twin;
  11. the workloads sweep, all 15 rows of scripts/bench_workloads.py through
      qpalm_tpu_torch/sweep.py (f32 pass through batch.solve_batch, f64
      host polish, finisher),
@@ -45,7 +49,8 @@ Phases, each asserting, any failure exiting non-zero:
  12. the memory-plan probes (qpalm_tpu_torch/probe.py) at n in 128, 224,
      256, 352 with m = 1.5 n, B = 128, timed with their counters zeroed,
      then against their plain versions (rel err < 1e-5 scratch, < 1e-3
-     assembly).
+     assembly), the assembly beside two library calls: the einsum of its
+     row sums (library_ms) and the einsum that forms M (form_ms).
 
 It prints a JSON line of the kernels' numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}} only when every phase passed.
@@ -58,6 +63,7 @@ over 3.35 TB/s, the H100 SXM's published peaks.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -100,6 +106,32 @@ def k1_bound(nb, n, m, iterations):
     nbytes = 4 * nb * (n * n + m * n + 2 * n + 3 * m + 1
                        + 2 * (8 * n + 7 * m + 18))
     return bound(per_iter * float(iterations), nbytes)
+
+
+def ptxas_summary(log):
+    """{kernel entry: (registers, spill store bytes, spill load bytes)} from
+    nvcc -Xptxas -v output."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            out[entry] = [0, 0, 0]
+            continue
+        if entry is None:
+            continue
+        for k, pattern in enumerate((r"Used (\d+) registers",
+                                     r"(\d+) bytes spill stores",
+                                     r"(\d+) bytes spill loads")):
+            hit = re.search(pattern, line)
+            if hit:
+                out[entry][k] = int(hit.group(1))
+    return out
+
+
+KERNEL_NAMES = (("fused_palm_kernelILb1E", "K1 streaming (fused_palm_kernel"
+                 "<true>)"), ("fused_palm_kernelILb0E", "K1 on chip"),
+                ("assembly_probe_kernel", "assembly probe"),
+                ("scratch_probe_kernel", "scratch probe"))
 
 
 def fail(msg):
@@ -418,11 +450,14 @@ def phase_stream_full(dev, probs_dual, s_dual):
     sc_rel = float(np.max(np.abs(sc_k - sc_p)
                           / np.maximum(1.0, np.abs(sc_p))))
     dx = (out_k.nst[:, F._X] - out_p.nst[:, F._X]).abs().max().item()
-    require(status_eq == nb and iter_eq == nb,
-            f"full width: statuses equal on {status_eq}/{nb}, iteration "
-            f"counts on {iter_eq}/{nb}")
-    require(sc_rel < 1e-3, f"full width: sc rows differ by {sc_rel:.3e}")
-    require(dx < 1e-3, f"full width: max|dx| {dx:.3e}")
+    # the streaming kernel keeps every entry's arithmetic of its twin
+    # (stream.cuh): bit for bit, not to a tolerance
+    require(rows_eq == nb, f"full width: all 18 sc rows bit-equal on "
+            f"{rows_eq}/{nb} (statuses {status_eq}, iteration counts "
+            f"{iter_eq}, max rel {sc_rel:.3e})")
+    require(dx == 0.0, f"full width: max|dx| {dx:.3e}, not 0")
+    require(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
+            "full width: the state differs from the twin's")
     # T-iteration launches resume exactly: three launches of STREAM_T / 3
     st3 = st
     for _ in range(3):
@@ -432,13 +467,25 @@ def phase_stream_full(dev, probs_dual, s_dual):
             f"from one of {STREAM_T}")
     ms = cuda_ms(lambda: F.fused_palm(sd, scal, st, STREAM_T, s), 3)
     iters = sc_k[:, F._ITER].sum()
+    kb = k1_bound(nb, n, m, iters)
+    # the split of the launch by each block's clock64() counters
+    F.fused_palm.profile = []
+    try:
+        F.fused_palm(sd, scal, st, STREAM_T, s)
+        split = F.profile_split(F.fused_palm.profile[0], ms)
+    finally:
+        F.fused_palm.profile = None
     say(f"[stream n={n} m={m} B={nb}] {STREAM_T} iterations from the same "
         f"state: statuses {status_eq}/{nb}, iteration counts {iter_eq}/{nb}, "
-        f"all 18 sc rows bit-equal on {rows_eq}/{nb} (max rel {sc_rel:.2e}), "
-        f"max|dx| {dx:.2e}; 3 launches of {STREAM_T // 3} bit-identical to "
-        f"one; kernel {ms:.2f} ms, plain {plain_ms:.1f} ms")
+        f"all 18 sc rows bit-equal on {rows_eq}/{nb}, max|dx| {dx:.1e}, the "
+        f"whole state bit-identical to the twin; 3 launches of "
+        f"{STREAM_T // 3} bit-identical to one; kernel {ms:.3f} ms, bound "
+        f"{kb['bound_ms']:.3f} ms ({kb['bound_by']}), plain {plain_ms:.1f} "
+        f"ms, library none")
+    say(f"[stream n={n} split] of {ms:.3f} ms by cycle counters: " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / ms:.1f}%)" for k, v in split.items()))
     numbers = dict(max_abs_err=dx, ms=ms, plain_ms=plain_ms, library_ms=None,
-                   **k1_bound(nb, n, m, iters))
+                   split_ms=split, **kb)
 
     # nonconvex: BOXQP-d n=16 under its pins, 100 iterations
     s_nc = Settings(**{**S_NC, "max_iter": 100})
@@ -477,6 +524,8 @@ def phase_sweep(dev):
         row["stream_launches"] = F.fused_palm.stream_launches - before[1]
         rows.append(row)
         label = f"{family} {row['size']} B={row['batch']}"
+        kb = k1_bound(row["batch"], row["n_pad"], row["m_pad"],
+                      row["mean_iterations"] * row["batch"])
         say(f"[sweep] {label} ({row['n_pad']}x{row['m_pad']}, {row['tier']}): "
             f"certified {row['certified']}/{row['batch']} (polish "
             f"{row['polish1_ok']}, retried {row['retried']}, finisher "
@@ -484,7 +533,7 @@ def phase_sweep(dev):
             f"{row['referee_disagreements']}, f32 solved {row['solved_f32']}, "
             f"mean iterations {row['mean_iterations']:.1f}; wall "
             f"{row['wall_s']:.3f} s = solve_batch {row['solve_s']:.3f} (K1 "
-            f"{row['k1_ms']:.1f} ms) + copy "
+            f"{row['k1_ms']:.1f} ms, bound {kb['bound_ms']:.3f} ms) + copy "
             f"{row['copy_s']:.3f} + polish {row['polish_s']:.3f} + retry/"
             f"finisher {row['retry_finish_s']:.3f}; launches "
             f"{row['launches']} (streaming {row['stream_launches']})")
@@ -539,7 +588,8 @@ def phase_probes():
             f"{sc['rel_err']:.1e}, plain {sc['plain_ms']:.3f} ms); assembly "
             f"{asm['ms']:.3f} ms ({asm['GBps']:.0f} GB/s, rel err "
             f"{asm['rel_err']:.1e}, plain {asm['plain_ms']:.3f} ms, einsum "
-            f"{asm['library_ms']:.3f} ms, bound {asm['bound_ms']:.3f} ms)")
+            f"of the row sums {asm['library_ms']:.3f} ms, einsum forming M "
+            f"{asm['form_ms']:.3f} ms, bound {asm['bound_ms']:.3f} ms)")
     last = rows[-1]
     numbers = {
         f"probe_{name}": dict(
@@ -548,6 +598,7 @@ def phase_probes():
             library_ms=last[name].get("library_ms"),
             bound_ms=last[name]["bound_ms"], bound_by=last[name]["bound_by"])
         for name in ("scratch", "assembly")}
+    numbers["probe_assembly"]["form_ms"] = last["assembly"]["form_ms"]
     return launches, numbers
 
 
@@ -601,6 +652,11 @@ def main():
         if "registers" in line or "Compiling entry" in line \
                 or "spill" in line:
             say(f"[build] {line.strip()}")
+    for entry, (regs, st, ld) in ptxas_summary(log).items():
+        for key, label in KERNEL_NAMES:
+            if key in entry:
+                say(f"[build] {label}: {regs} registers, {st} bytes spill "
+                    f"stores, {ld} bytes spill loads")
 
     numbers = {}
 

@@ -45,9 +45,10 @@ static __device__ void chol_upper_inplace(float* M, float* rt, int n) {
 
 // Schur assembly M = M0 + A' diag(w) A, n x n row-major, n a multiple of 4:
 // one 4x4 tile of M per thread and pass, float4 loads of A's rows, and the
-// m rows of A summed in order into registers that start at M0's tile (at 0
-// when M0 is null).  M0, A, w and M may each lie in shared or global memory
-// (16-byte aligned).  The caller synchronises after.
+// m rows of A summed in order into registers that start at M0's tile (K1's
+// on-chip tier; the streaming tier has its own, stream.cuh).  M0, A, w and
+// M may each lie in shared or global memory (16-byte aligned).  The caller
+// synchronises after.
 static __device__ __forceinline__ void schur_tiles(float* M, const float* M0,
                                                    const float* A,
                                                    const float* w, int n,
@@ -58,8 +59,8 @@ static __device__ __forceinline__ void schur_tiles(float* M, const float* M0,
     float acc[4][4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      float4 qr = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (M0) qr = *reinterpret_cast<const float4*>(M0 + (r0 + r) * n + c0);
+      const float4 qr =
+          *reinterpret_cast<const float4*>(M0 + (r0 + r) * n + c0);
       acc[r][0] = qr.x; acc[r][1] = qr.y; acc[r][2] = qr.z; acc[r][3] = qr.w;
     }
     for (int i = 0; i < m; ++i) {

@@ -37,18 +37,23 @@
 //
 // The streaming tier (template STREAM) takes the shapes whose on-chip plan
 // exceeds a block's 227 KB: the Schur matrix alone is n^2 x 4 B, 496 KB at
-// n=352.  The simplest plan that is right: Q and A are read straight from
-// global memory (L2), M lives in a per-problem global scratch that the
-// wrapper allocates, and only the vectors and the reduction scratch stay in
-// shared memory (52 KB at n = m = 352).  __syncthreads() orders a block's
-// global writes as it orders its shared ones, so the Cholesky's rank-1
-// updates and the warp solves run unchanged on a global M.  The tier follows
-// the reference's streaming assembly order, not the on-chip one: the tiles
-// start at 0, Gershgorin reads |A'WA| directly, then M += Q, then the
-// diagonal += 1/gamma; the two orders round differently.  It is bound by L2
-// traffic and latency: every Schur tile pass re-reads A's rows and every
-// Cholesky step reads and writes M's trailing triangle in global memory.
-//
+// n=352.  Q and A stay in global memory, M lives in a per-problem global
+// scratch that the wrapper allocates, and the vectors, the reduction scratch
+// and a staging region sit in shared memory (stream_plan; 92 KB at n = m =
+// 352).  The staging region holds, in turn, two row panels of A brought in
+// by bulk asynchronous copies for the Schur assembly, a panel of M's rows
+// for the blocked Cholesky, and two row panels of the factor for the
+// triangular solves (stream.cuh); it overlaps the vectors and the reduction
+// scratch that are dead while those run.  Only M's upper triangle is
+// formed.  The tier follows the reference's streaming assembly order, not
+// the on-chip one: the tiles start at 0, Gershgorin reads |A'WA| (here the
+// symmetric completion of its upper triangle), then M += Q, then the
+// diagonal += 1/gamma; the two orders round differently.  Per iteration it
+// reads A once per 256 upper 8x8 tiles of M (4 times at n=352) and M's
+// trailing triangle once per Cholesky panel; it is bound by the FP32
+// instruction rate in the assembly and by chains of dependent steps in the
+// Cholesky panels and the solves.
+
 // Numerics.  No fast math.  Reductions are warp butterflies plus a fixed
 // combine of the warp partials, never atomics, so reruns are bit-identical.
 // 1/sqrtf replaces rsqrt (rsqrtf is approximate).  Products with FLT_MIN in
@@ -60,7 +65,10 @@
 
 #include <string.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+#include "stream.cuh"
 
 namespace {
 
@@ -68,6 +76,38 @@ constexpr int NT = 256;
 constexpr int NWARP = NT / 32;
 constexpr int RED_K = 12;  // most values one block reduction carries
 constexpr float INFTY = 1e20f;
+constexpr int SMEM_LIMIT = 232448;  // bytes one block may use on Hopper
+// the streaming tier's panels: A's rows per staging panel, M's rows per
+// Cholesky panel (a multiple of 8), each at most, and b at least
+constexpr int STREAM_P_MAX = 16, STREAM_B_MAX = 32, STREAM_B_MIN = 8;
+// assembly, Gershgorin + Q, Cholesky panels, Cholesky trailing updates,
+// solves, the whole loop
+constexpr int PROF_SECTIONS = 6;
+
+// The streaming tier's shared memory, in floats: the 18 n- and 19 m-vectors
+// and the reduction scratch as on chip, and the staging region at offset
+// `stage` (after the 15th m-vector, 16-byte aligned): two mbarriers (4
+// floats), max(2 P n, b n) floats of panels (A's for the assembly, M's for
+// the Cholesky, the factor's for the solves) and 4 floats that absorb the
+// reads of a 4-wide edge tile.  The staging region overlaps the last four
+// m-vectors (Ad, sad, alo, ahi) and the reduction scratch, all dead while
+// the assembly and the Cholesky run.  P and b take what the vectors leave
+// under SMEM_LIMIT, at least 1 and STREAM_B_MIN; `floats` over SMEM_LIMIT / 4
+// means no plan.  solver/fused.py:stream_plan mirrors it.
+struct StreamPlan {
+  int P, b, stage, floats;
+};
+
+StreamPlan stream_plan(int n, int m) {
+  StreamPlan p;
+  p.stage = (18 * n + 15 * m + 3) & ~3;
+  const int avail = SMEM_LIMIT / 4 - p.stage - 8;
+  p.P = std::max(1, std::min(STREAM_P_MAX, avail / (2 * n)));
+  p.b = std::max(STREAM_B_MIN, std::min(STREAM_B_MAX, avail / n / 8 * 8));
+  const int vec = 18 * n + 19 * m + 2 * RED_K * NWARP;
+  p.floats = std::max(vec, p.stage + 8 + std::max(2 * p.P * n, p.b * n));
+  return p;
+}
 
 // scalar-state rows (qpalm_tpu/solver/fused.py:68-70)
 enum {
@@ -164,16 +204,17 @@ __device__ __forceinline__ void chol_solve_warp(const float* M, float* d,
 }
 
 template <bool STREAM>
-__global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
+__global__ void __launch_bounds__(NT, STREAM ? 1 : 3) fused_palm_kernel(
     const float* __restrict__ gQ, const float* __restrict__ gA,
     const float* __restrict__ gq, const float* __restrict__ gbmin,
     const float* __restrict__ gbmax, const float* __restrict__ gDinv,
     const float* __restrict__ gEinv, const float* __restrict__ gcinv,
     float* __restrict__ gnst, float* __restrict__ gmst,
-    float* __restrict__ gsc, float* __restrict__ gM, const FSet fs,
-    const int n, const int m, const int T, const int inner_max_iter,
-    const int max_iter, const int scaling_on, const int prox,
-    const int nonconvex, const int enable_dual) {
+    float* __restrict__ gsc, float* __restrict__ gM,
+    long long* __restrict__ gprof, const FSet fs, const int n, const int m,
+    const int T, const int inner_max_iter, const int max_iter,
+    const int scaling_on, const int prox, const int nonconvex,
+    const int enable_dual, const int P, const int b, const int stage_at) {
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t pb = blockIdx.x;
@@ -224,6 +265,20 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
   float* alo = mv + 17 * m;
   float* ahi = mv + 18 * m;
   float* red = mv + 19 * m;  // 2 * RED_K * NWARP
+  // streaming: the staging region, two mbarriers then the panels
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + stage_at);
+  float* stg = sm + stage_at + 4;
+
+  // a profiled streaming launch: thread 0 sums clock64() cycles by section
+  long long prof[PROF_SECTIONS] = {0, 0, 0, 0, 0, 0}, tick = 0;
+  const bool profiling = STREAM && gprof != nullptr && tid == 0;
+  auto mark = [&](int s) {
+    if (profiling) {
+      const long long now = clock64();
+      if (s >= 0) prof[s] += now - tick;
+      tick = now;
+    }
+  };
 
   // ---- load ----
   if (!STREAM) {
@@ -258,6 +313,7 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
   const float cs = scaling_on ? 1.0f / cinv : 1.0f;
   int rp = 0;  // reduction scratch parity
   __syncthreads();
+  const long long t_loop = profiling ? clock64() : 0;
 
   for (int t = 0; t < T && !(done > 0.5f); ++t) {
     // ---- residuals (iteration.c:24-48) and the m-side norms ----
@@ -432,9 +488,17 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
       }
       for (int j = tid; j < n; j += NT) d[j] = Atyh[j] + q[j];
       __syncthreads();
-      chol_upper_inplace(M, rt, n);
-      chol_solve_warp(M, d, zf, n);
+      if (STREAM)
+        stream::chol_blocked(M, stg, n, b, profiling, prof[2], prof[3]);
+      else
+        chol_upper_inplace(M, rt, n);
+      mark(-1);
+      if (STREAM)
+        stream::solve_stream(M, d, zf, stg, bars, n, P);
+      else
+        chol_solve_warp(M, d, zf, n);
       __syncthreads();
+      mark(4);
       float v[2] = {0.0f, 0.0f};
       for (int j = tid; j < n; j += NT) v[0] += (Atyh[j] + q[j]) * d[j];
       for (int i = tid; i < m; i += NT) {
@@ -490,35 +554,48 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
     // ---- inner Newton step (qpalm.c:662-678) ----
     if (b_inner) {
       for (int j = tid; j < n; j += NT) d[j] = -dphi[j];
-      // on chip M = Q + A' diag(w) A; streaming M = A' diag(w) A
-      schur_tiles(M, STREAM ? nullptr : Q, A, w, n, m);
+      mark(-1);
+      // on chip M = Q + A' diag(w) A; streaming the upper triangle of
+      // A' diag(w) A
+      if (STREAM)
+        stream::schur_stream(M, A, w, stg, bars, n, m, P);
+      else
+        schur_tiles(M, Q, A, w, n, m);
       __syncthreads();
-      // Gershgorin bound of A'WA by rows (on chip M - Q, streaming M itself,
-      // which then gets + Q), then M += I / gamma
+      mark(0);
+      // Gershgorin bound of A'WA by rows (on chip M - Q, streaming the
+      // symmetric completion of M, which then gets + Q), then
+      // M += I / gamma
       float gersh_new;
       {
         const float ginv = prox ? 1.0f / gamma : 0.0f;
         float v[1] = {0.0f};
-        for (int j = warp; j < n; j += NWARP) {
-          float s = 0.0f;
-          for (int k = lane; k < n; k += 32) {
-            if (STREAM) {
-              const float awa = M[j * n + k];
-              s += fabsf(awa);
-              M[j * n + k] = awa + Q[j * n + k];
-            } else {
+        if (STREAM) {
+          v[0] = stream::gershgorin_add_q(M, Q, ginv, rt, n);
+        } else {
+          for (int j = warp; j < n; j += NWARP) {
+            float s = 0.0f;
+            for (int k = lane; k < n; k += 32)
               s += fabsf(M[j * n + k] - Q[j * n + k]);
-            }
+            v[0] = nmax(v[0], warp_sum(s));
+            if (lane == (j & 31)) M[j * n + j] += ginv;
           }
-          v[0] = nmax(v[0], warp_sum(s));
-          if (lane == (j & 31)) M[j * n + j] += ginv;
         }
         block_reduce<1>(v, 1u, red, rp);  // also publishes M
         gersh_new = v[0];
       }
-      chol_upper_inplace(M, rt, n);
-      chol_solve_warp(M, d, zf, n);  // d = M^-1 (-dphi)
+      mark(1);
+      if (STREAM)
+        stream::chol_blocked(M, stg, n, b, profiling, prof[2], prof[3]);
+      else
+        chol_upper_inplace(M, rt, n);
+      mark(-1);
+      if (STREAM)  // d = M^-1 (-dphi)
+        stream::solve_stream(M, d, zf, stg, bars, n, P);
+      else
+        chol_solve_warp(M, d, zf, n);
       __syncthreads();
+      mark(4);
       // Qd (+ d / gamma), Ad, and the linesearch's breakpoints
       float eta, beta;
       {
@@ -634,6 +711,11 @@ __global__ void __launch_bounds__(NT, 3) fused_palm_kernel(
 
   // ---- write back ----
   __syncthreads();
+  if (profiling) {
+    prof[PROF_SECTIONS - 1] = clock64() - t_loop;
+    for (int k = 0; k < PROF_SECTIONS; ++k)
+      gprof[pb * PROF_SECTIONS + k] = prof[k];
+  }
   for (int e = tid; e < 8 * n; e += NT) gnst[pb * 8 * n + e] = nv[e];
   for (int e = tid; e < 7 * m; e += NT) gmst[pb * 7 * m + e] = mv[e];
   if (tid == 0) {
@@ -666,41 +748,55 @@ extern "C" int qp_fused_smem_bytes(int n, int m) {
 }
 
 extern "C" int qp_fused_stream_smem_bytes(int n, int m) {
-  return (int)(sizeof(float) * (18 * (size_t)n + 19 * (size_t)m +
-                                2 * RED_K * NWARP));
+  return (int)sizeof(float) * stream_plan(n, m).floats;
 }
 
-// tier 0 runs the on-chip kernel (M unused, may be null); tier 1 the
-// streaming one, with M a (B, n, n) float scratch.
+// out[0] = P, out[1] = b, out[2] = the staging region's offset in floats
+extern "C" int qp_fused_stream_plan(int n, int m, int* out) {
+  const StreamPlan p = stream_plan(n, m);
+  out[0] = p.P;
+  out[1] = p.b;
+  out[2] = p.stage;
+  return 0;
+}
+
+// tier 0 runs the on-chip kernel (M and prof unused, may be null); tier 1
+// the streaming one, with M a (B, n, n) float scratch (only its upper
+// triangle is meaningful after a launch) and prof null or a (B, 6) int64
+// array that receives each block's clock64() cycles in the assembly, the
+// Gershgorin pass with + Q, the Cholesky's panels and its trailing updates
+// (the dual check's Cholesky of Q included), the solves, and the whole loop.
 extern "C" int qp_fused_palm(const float* Q, const float* A, const float* q,
                              const float* bmin, const float* bmax,
                              const float* Dinv, const float* Einv,
                              const float* cinv, float* nst, float* mst,
-                             float* sc, float* M, const float* fset, int B,
-                             int n, int m, int T, int inner_max_iter,
-                             int max_iter, int scaling_on, int proximal,
-                             int nonconvex, int enable_dual, int tier,
-                             void* stream) {
+                             float* sc, float* M, long long* prof,
+                             const float* fset, int B, int n, int m, int T,
+                             int inner_max_iter, int max_iter, int scaling_on,
+                             int proximal, int nonconvex, int enable_dual,
+                             int tier, void* stream) {
   if (B == 0 || T == 0) return 0;
-  if (n % 4 || (tier && (M == nullptr || (size_t)M % 16)))
+  if (n % 4 || (tier && (M == nullptr || (size_t)M % 16 || (size_t)A % 16)))
     return (int)cudaErrorInvalidValue;
   FSet fs;
   memcpy(&fs, fset, sizeof(FSet));
+  const StreamPlan plan = stream_plan(n, m);
   const int smem =
       tier ? qp_fused_stream_smem_bytes(n, m) : qp_fused_smem_bytes(n, m);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       tier ? &fused_palm_kernel<true> : &fused_palm_kernel<false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   if (tier)
     fused_palm_kernel<true><<<B, NT, smem, (cudaStream_t)stream>>>(
-        Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, M, fs, n, m, T,
-        inner_max_iter, max_iter, scaling_on, proximal, nonconvex,
-        enable_dual);
+        Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, M, prof, fs, n,
+        m, T, inner_max_iter, max_iter, scaling_on, proximal, nonconvex,
+        enable_dual, plan.P, plan.b, plan.stage);
   else
     fused_palm_kernel<false><<<B, NT, smem, (cudaStream_t)stream>>>(
-        Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, M, fs, n, m, T,
-        inner_max_iter, max_iter, scaling_on, proximal, nonconvex,
-        enable_dual);
+        Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, M, nullptr, fs,
+        n, m, T, inner_max_iter, max_iter, scaling_on, proximal, nonconvex,
+        enable_dual, 0, 0, 0);
   return (int)cudaGetLastError();
 }

@@ -8,21 +8,32 @@
 // double-buffered row panels, M's row sums out).  The plain versions are
 // qpalm_tpu_torch/probe.py:scratch_probe_plain and assembly_probe_plain.
 //
-// Here the plan under test is the one fused_palm.cu's streaming tier uses:
-// one 256-thread block per problem, M in a per-problem global scratch that
-// the wrapper allocates, A read straight from global memory, w in shared
-// memory.  The scratch probe makes the Cholesky's access pattern (a warp per
-// row of M, its lanes across the row, a block barrier after every rank-1
-// update); the assembly probe calls the very Schur assembly of that tier
-// (common.cuh:schur_tiles), so its time is that tier's assembly time under
-// its plan.  Both are bound by L2 and device-memory traffic to M.
+// Both run one 256-thread block per problem with M in a per-problem global
+// scratch that the wrapper allocates.  The scratch probe makes the access
+// pattern of the rank-1 plan the streaming tier's Cholesky used until its
+// blocked redesign (chol_upper_inplace on a global M: a warp per row of M,
+// its lanes across the row, a block barrier after every rank-1 update), and
+// is bound by L2 and device-memory traffic to M.  The assembly probe calls
+// the streaming tier's own Schur assembly (stream.cuh:schur_stream: A in
+// double-buffered row panels of PROBE_P rows brought into shared memory by
+// bulk asynchronous copies, 8x8 register tiles of M's upper triangle), so
+// its time is that tier's assembly time; its row sums read the symmetric
+// completion of the upper triangle.
 
 #include "common.cuh"
+#include "stream.cuh"
 
 namespace {
 
 constexpr int NT = 256;
 constexpr int NWARP = NT / 32;
+constexpr int PROBE_P = 16;  // A's rows per staging panel, as the tier's
+
+// shared memory of the assembly probe, in floats: w, two mbarriers, the
+// panels and 4 floats for the reads of a 4-wide edge tile
+int assembly_probe_floats(int n, int m) {
+  return ((m + 3) & ~3) + 4 + 2 * PROBE_P * n + 4;
+}
 
 // out[j] = sum_k M[j, k], one warp per row
 __device__ __forceinline__ void row_sums(const float* M, float* out, int n) {
@@ -61,12 +72,23 @@ __global__ void __launch_bounds__(NT) assembly_probe_kernel(
     float* __restrict__ gM, float* __restrict__ out, int n, int m) {
   extern __shared__ __align__(16) float w[];
   const size_t pb = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* M = gM + pb * n * n;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(w + ((m + 3) & ~3));
   for (int i = threadIdx.x; i < m; i += NT) w[i] = gw[pb * m + i];
   __syncthreads();
-  schur_tiles(M, nullptr, gA + pb * m * n, w, n, m);
+  stream::schur_stream(M, gA + pb * m * n, w,
+                       reinterpret_cast<float*>(bars) + 4, bars, n, m,
+                       PROBE_P);
   __syncthreads();
-  row_sums(M, out + pb * n, n);
+  // row sums of the symmetric completion, one warp per row
+  for (int j = warp; j < n; j += NWARP) {
+    float s = 0.0f;
+    for (int k = lane; k < n; k += 32)
+      s += k >= j ? M[j * n + k] : M[k * n + j];
+    s = warp_sum(s);
+    if (lane == 0) out[pb * n + j] = s;
+  }
 }
 
 }  // namespace
@@ -87,7 +109,7 @@ extern "C" int qp_assembly_probe(const float* A, const float* w, float* M,
   if (B == 0) return 0;
   if (n % 4 || (size_t)A % 16 || (size_t)M % 16)
     return (int)cudaErrorInvalidValue;
-  const int smem = m * (int)sizeof(float);
+  const int smem = assembly_probe_floats(n, m) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       &assembly_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

@@ -4,15 +4,20 @@ probes of scripts/probe_mosaic_scratch.py, :42-93 and :106-175).
     scratch_probe(seed, n)   seed (B,) -> (B, n): an (n, n) global scratch
                              per problem filled with seed + row, 8 rank-1
                              updates M -= v v' (v = iota / n) made as the
-                             Cholesky makes them, M's row sums out
-    assembly_probe(A, w)     A (B, m, n), w (B, m) -> (B, n): M = A' diag(w) A
-                             by the streaming tier's own Schur assembly into
-                             a global scratch, M's row sums out
+                             rank-1 plan the streaming tier's Cholesky used
+                             through its first port made them, M's row sums
+                             out
+    assembly_probe(A, w)     A (B, m, n), w (B, m) -> (B, n): the upper
+                             triangle of M = A' diag(w) A by the streaming
+                             tier's own Schur assembly (A in row panels
+                             through shared memory) into a global scratch,
+                             the row sums of its symmetric completion out
 
 The CUDA source is csrc/probe_stream.cu; the plain versions below are what
 a CPU tensor runs.  `measure` times both kernels at one shape and reports
 the bytes their plan moves through global memory per second;
-`against_plain` holds them against their plain versions.  Run on the card:
+`against_plain` holds them against their plain versions and times two
+library yardsticks of the assembly.  Run on the card:
 
     python -m qpalm_tpu_torch.probe    one JSON line, n in 128, 224, 256,
                                        352 with m = 1.5 n and B = 128
@@ -53,6 +58,12 @@ def assembly_probe_library(A: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The same row sums in one PyTorch call, which may contract A'(w (A 1))
     without forming M: a yardstick for the kernel, used nowhere else."""
     return torch.einsum("bmi,bm,bmj->bi", A, w, A)
+
+
+def assembly_form_library(A: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The one PyTorch call that forms M = A' diag(w) A itself (both
+    triangles): the second yardstick, used nowhere else."""
+    return torch.einsum("bmi,bm,bmj->bij", A, w, A)
 
 
 def _cuda_f32(name, *tensors):
@@ -122,13 +133,23 @@ def probe_inputs(n: int, m: int, B: int = BATCH, seed: int = 0,
     return tuple(torch.from_numpy(a).to(device) for a in (s, A, w))
 
 
+def assembly_passes(n: int) -> int:
+    """Passes of the streaming assembly over A: one per 256 of the 8x8
+    tiles of M's upper triangle (csrc/stream.cuh:schur_stream)."""
+    nb = -(-n // 8)
+    return -(-(nb * (nb + 1) // 2) // 256)
+
+
 def plan_bytes(n: int, m: int, B: int = BATCH) -> dict:
     """Bytes each probe's plan moves through global memory: the scratch
     probe writes M, reads and writes it in each rank-1 update and reads it
-    for the row sums; the assembly probe reads A and w once, writes M and
-    reads it back for the row sums."""
+    for the row sums; the assembly probe reads w once and A once a pass,
+    writes the upper 8x8 tiles of M and reads n^2 entries back for the row
+    sums of the completion."""
+    nb = -(-n // 8)
     return dict(scratch=4 * B * n * n * (2 + 2 * RANK1_UPDATES),
-                assembly=4 * B * (m * n + m + 2 * n * n))
+                assembly=4 * B * (assembly_passes(n) * m * n + m
+                                  + 32 * nb * (nb + 1) + n * n + n))
 
 
 def _relerr(got, want):
@@ -166,8 +187,8 @@ def against_plain(n: int, m: int, B: int = BATCH) -> dict:
     """Each probe kernel against its plain version on the same inputs: the
     relative error (to max(1, max|plain|), as the reference script) and the
     largest absolute one, the plain version's time, and for the assembly
-    probe the time of the one library call that returns the same row
-    sums."""
+    probe the times of the one library call that returns the same row sums
+    (library_ms) and of the one that forms M (form_ms)."""
     seed, A, w = probe_inputs(n, m, B)
     got_s, got_a = scratch_probe(seed, n), assembly_probe(A, w)
     want_s = scratch_probe_plain(seed, n)
@@ -180,7 +201,8 @@ def against_plain(n: int, m: int, B: int = BATCH) -> dict:
                       max_abs_err=(got_a - want_a).abs().max().item(),
                       plain_ms=_ms(lambda: assembly_probe_plain(A, w), 3),
                       library_ms=_ms(lambda: assembly_probe_library(A, w),
-                                     5)))
+                                     5),
+                      form_ms=_ms(lambda: assembly_form_library(A, w), 5)))
 
 
 def main():

@@ -7,8 +7,10 @@ pins, and dual-objective termination.  The CUDA source is
 csrc/fused_palm.cu: one block of threads per problem.  In the on-chip tier
 Q, A, the Schur matrix and the state sit in shared memory; in the streaming
 tier, for shapes whose on-chip plan exceeds a block's shared memory, Q and
-A are read from global memory and the Schur matrix lives in a global
-scratch (`pick_tier` chooses).  `fused_palm_plain` below is its plain twin;
+A stay in global memory, A passes through shared memory in row panels, and
+the upper triangle of the Schur matrix lives in a global scratch, factored
+in row panels (csrc/stream.cuh; `pick_tier` chooses, `stream_plan` sizes
+the panels).  `fused_palm_plain` below is its plain twin;
 it follows fused.py:538-906 operation by operation on batch-first tensors,
 and is what a CPU tensor runs.
 
@@ -60,14 +62,43 @@ class FusedState(NamedTuple):
 STREAM_N_MAX = 352
 
 
+# The streaming tier's panels (fused_palm.cu): A's rows per staging panel
+# and M's rows per Cholesky panel (a multiple of 8), each at most, and b at
+# least
+STREAM_P_MAX, STREAM_B_MAX, STREAM_B_MIN = 16, 32, 8
+
+
+def stream_plan(n: int, m: int):
+    """The streaming tier's shared-memory plan at (n, m), as fused_palm.cu's
+    stream_plan: (P, b, stage, nbytes).  The 18 n- and 19 m-vectors and the
+    reduction scratch sit as on chip; a staging region starts after the
+    15th m-vector (16-byte aligned, float offset `stage`) with two
+    mbarriers, max(2 P n, b n) floats of panels (two row panels of A for
+    the Schur assembly, then b rows of M for the blocked Cholesky, then two
+    row panels of the factor for the solves) and 4 floats of slack.  It overlaps the last four m-vectors and the reduction
+    scratch, dead while those run.  P and b take what the vectors leave
+    under SMEM_LIMIT, P at least 1 and b at least STREAM_B_MIN; nbytes over
+    SMEM_LIMIT means no plan.  The minimum fits wherever the vectors alone
+    fit (n <= STREAM_N_MAX), so this admits the shapes the plan without
+    panels admitted."""
+    stage = (18 * n + 15 * m + 3) & ~3
+    avail = SMEM_LIMIT // 4 - stage - 8
+    P = max(1, min(STREAM_P_MAX, avail // (2 * n)))
+    b = max(STREAM_B_MIN, min(STREAM_B_MAX, avail // n // 8 * 8))
+    floats = max(18 * n + 19 * m + 2 * 12 * 8,
+                 stage + 8 + max(2 * P * n, b * n))
+    return P, b, stage, 4 * floats
+
+
 def fused_smem_bytes(n: int, m: int, stream: bool = False) -> int:
     """Shared memory one block of K1 uses at (n, m).  On chip: Q, A, the
     Schur matrix M, 18 n-vectors, 19 m-vectors and the reduction scratch;
-    streaming: the vectors and the scratch only.  It mirrors fused_palm.cu's
+    streaming: `stream_plan`'s.  It mirrors fused_palm.cu's
     qp_fused_smem_bytes and qp_fused_stream_smem_bytes, so the plan can be
     checked where the library cannot be built."""
-    matrices = 0 if stream else 2 * n * n + m * n
-    return 4 * (matrices + 18 * n + 19 * m + 2 * 12 * 8)
+    if stream:
+        return stream_plan(n, m)[3]
+    return 4 * (2 * n * n + m * n + 18 * n + 19 * m + 2 * 12 * 8)
 
 
 def pick_tier(n: int, m: int):
@@ -86,8 +117,8 @@ def pick_tier(n: int, m: int):
 def _tier(qa_panel: int, n: int, m: int) -> str:
     """The tier a `qa_panel` argument selects, with the reference's meaning
     (fused.py:944-945): -2 from the shape, 0 on chip, > 0 streaming.  The
-    panel height itself has no counterpart: the streaming kernel reads Q
-    and A straight from global memory."""
+    panel height itself is not taken: the streaming kernel's panels come
+    from `stream_plan`."""
     if qa_panel == -2:
         tier = pick_tier(n, m)
         if tier is None:
@@ -164,6 +195,16 @@ def _block_sum(v):
 def _warp_rows_sum(v):
     """Rows j summed by warp j % 8 in order, then the 8 warps in order."""
     return _in_order(_strided(v, _BLOCK // 32))[..., None]
+
+
+def gershgorin_completion(M):
+    """Gershgorin row bound of the streaming tier (stream.cuh:
+    gershgorin_add_q), read from M's upper triangle only: for row j, the
+    column sum of |M[k, j]| over k < j in order, plus the lane-strided warp
+    sum of |M[j, k]| over k >= j; the largest over j, (B, 1)."""
+    cols = _in_order(torch.triu(M, 1).abs().transpose(1, 2))
+    rows = _lane_sum(torch.triu(M).abs())
+    return (cols + rows).amax(1, keepdim=True)
 
 
 def _solve_kernel_order(R, b):
@@ -449,12 +490,14 @@ def fused_palm_plain(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
         # Newton direction for every lane, applied under the b_inner mask
         w = active * sig_new
         # on chip M = Q + A'WA and Gershgorin reads M - Q; streaming
-        # (fused.py:390-425) M = A'WA, Gershgorin reads it, then M += Q
+        # (fused.py:390-425) M = A'WA, Gershgorin reads the symmetric
+        # completion of its upper triangle (the kernel forms no other),
+        # then M += Q
         M = torch.zeros_like(Q) if stream else Q
         for i in range(A.shape[1]):
             M = M + (w[:, i, None] * A[:, i])[:, :, None] * A[:, i, None, :]
         if stream:
-            gersh = _lane_sum(M.abs()).amax(1, keepdim=True)
+            gersh = gershgorin_completion(M)
             M = M + Q
         else:
             gersh = _lane_sum((M - Q).abs()).amax(1, keepdim=True)
@@ -528,7 +571,11 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
     `fused_palm.launches` counts launches of either tier,
     `fused_palm.stream_launches` those of the streaming tier.  While
     `fused_palm.events` is a list, each launch appends to it the CUDA
-    events recorded just before and just after it."""
+    events recorded just before and just after it.  While
+    `fused_palm.profile` is a list, each streaming launch appends a (B, 6)
+    int64 tensor of each block's clock cycles in the Schur assembly, the
+    Gershgorin pass with + Q, the Cholesky's panels, its trailing updates,
+    the triangular solves and the whole loop (`PROFILE_SECTIONS`)."""
     B, n, _ = data.Q.shape
     m = data.A.shape[1]
     stream = _tier(qa_panel, n, m) == "stream"
@@ -561,6 +608,11 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
                        for t in st))
     scratch = torch.empty((B, n, n), dtype=torch.float32,
                           device=data.Q.device) if stream else None
+    prof = None
+    if stream and fused_palm.profile is not None:
+        prof = torch.zeros((B, len(PROFILE_SECTIONS) + 1), dtype=torch.int64,
+                           device=data.Q.device)
+        fused_palm.profile.append(prof)
     fset = _float_settings(s)
     events = fused_palm.events
     with torch.cuda.device(data.Q.device):
@@ -570,7 +622,8 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
             events[-1][0].record()
         rc = kernels().qp_fused_palm(
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out),
-            scratch.data_ptr() if stream else None, fset.ctypes.data, B, n,
+            scratch.data_ptr() if stream else None,
+            None if prof is None else prof.data_ptr(), fset.ctypes.data, B, n,
             m, int(T), int(s.inner_max_iter), int(s.max_iter),
             int(bool(s.scaling)), int(bool(s.proximal)),
             int(bool(s.nonconvex)), int(bool(s.enable_dual_termination)),
@@ -586,6 +639,21 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
 fused_palm.launches = 0
 fused_palm.stream_launches = 0
 fused_palm.events = None
+fused_palm.profile = None
+# the streaming kernel's cycle counters before the whole loop's
+PROFILE_SECTIONS = ("assembly", "gershgorin_q", "cholesky_panels",
+                    "cholesky_trailing", "solves")
+
+
+def profile_split(prof: torch.Tensor, ms: float) -> dict:
+    """The milliseconds `ms` of a profiled streaming launch split by the
+    summed cycle counters of its blocks (`fused_palm.profile`), the cycles
+    outside the sections as "rest"."""
+    tot = prof.double().sum(0).cpu()
+    split = {k: float(ms * tot[i] / tot[-1])
+             for i, k in enumerate(PROFILE_SECTIONS)}
+    split["rest"] = ms - sum(split.values())
+    return split
 
 
 def _tensor(a, like: torch.Tensor) -> torch.Tensor:

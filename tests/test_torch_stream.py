@@ -128,16 +128,42 @@ def test_shapes_past_the_streaming_rule_raise():
         F.solve_batch_fused(data, _settings(2), qa_panel=-1)
 
 
+def _bit_identical_to_twin(n, m):
+    """The streaming kernel and its twin from the same state, every state
+    tensor bit-equal: randomQP n=352 (the sweep's widest row, its settings)
+    for 5 iterations, or n, m stacked to a multiple of 4 and forced to
+    stream for 40."""
+    from qpalm_tpu_torch.sweep import S32, row_problems
+
+    if n == 352:
+        probs, T, pad = row_problems("randomQP", 352), 5, 8
+    else:
+        probs = [random_convex_qp(n, m, seed=900 + i, density=0.5)
+                 for i in range(32)]
+        T, pad = 40, 4
+    data = stack_problems(probs, np.float32, pad_multiple=pad, device="cuda")
+    sd, scal, st = F._prepare(data, S32)
+    got = F.fused_palm(sd, scal, st, T, S32, qa_panel=8)
+    want = F.fused_palm_plain(sd, scal, st, T, S32, stream=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,tier", [
     (16, 24, "convex"), (16, 24, "plain"), (16, 24, "dual"),
-    (8, 8, "nonconvex"), (16, 24, "warm"), (160, 160, "convex")])
+    (8, 8, "nonconvex"), (16, 24, "warm"), (160, 160, "convex"),
+    (352, 352, "bits"), (140, 100, "bits")])
 def test_cuda_stream_kernel_matches_plain_twin(n, m, tier):
     """Every flag of the on-chip tier in the streaming one: proximal or
     plain, dual termination, nonconvex pins, warm start; and launches of a
-    few iterations resume exactly."""
+    few iterations resume exactly.  "bits": kernel = twin bit for bit at
+    n=352 and at n=140, m=100 (4-wide edge tiles, a ragged Cholesky panel
+    of 12 rows, a ragged A panel of 4)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
+    if tier == "bits":
+        return _bit_identical_to_twin(n, m)
     from qpalm_tpu_torch.solver.nonconvex import batch_gamma_pins
 
     pins = (None, None)
