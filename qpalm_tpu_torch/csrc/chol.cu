@@ -7,8 +7,9 @@
 //
 // What bounds it on an H100: at the polish's shapes (B=512, n=64) the data
 // is 8 MB, read once, so the kernels are latency bound, not bandwidth
-// bound: the factor is n dependent steps of two block barriers each, and
-// the solve is 2n dependent steps per right-hand side.  The design keeps
+// bound: the factor is n rows of one block barrier each, every entry's
+// subtractions a chain in one thread's registers (common.cuh), and the
+// solve is 2n dependent steps per right-hand side.  The design keeps
 // every step in shared memory (16 KB per matrix at n=64, so several blocks
 // share an SM and hide each other's barriers), and the solve gives each
 // right-hand side its own thread, so the identity right-hand sides of the
@@ -27,11 +28,10 @@ __global__ void __launch_bounds__(CHOL_THREADS)
 chol_kernel(const float* __restrict__ gM, float* __restrict__ gR, int n) {
   extern __shared__ float sm[];
   float* M = sm;
-  float* rt = sm + n * n;
   const size_t off = (size_t)blockIdx.x * n * n;
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) M[e] = gM[off + e];
   __syncthreads();
-  chol_upper_inplace(M, rt, n);
+  chol_upper_inplace(M, n);
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) gR[off + e] = M[e];
 }
 
@@ -73,7 +73,7 @@ __global__ void chol_solve_kernel(const float* __restrict__ gR,
 
 extern "C" int qp_chol(const float* M, float* R, int B, int n, void* stream) {
   if (B == 0 || n == 0) return 0;
-  const int smem = (int)((size_t)(n * n + n) * sizeof(float));
+  const int smem = (int)((size_t)n * n * sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(
       chol_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

@@ -19,26 +19,40 @@ static __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Upper Cholesky factor in place, by the outer-product recurrence of
-// qpalm_tpu/linalg/pallas_chol.py:_chol_kernel_loop.  M is n x n, row-major,
-// in shared memory, SPD; on return it holds R (R'R = M) with a zero lower
-// triangle.  rt is n floats of shared scratch.  Every thread of the block
-// calls it.  Step k scales row k by 1/sqrt(M[k][k]) and subtracts its outer
-// product from the trailing upper triangle: two barriers per step.
-static __device__ void chol_upper_inplace(float* M, float* rt, int n) {
+// Upper Cholesky factor in place, each entry's arithmetic and order that of
+// linalg/chol.py:cholesky_upper_plain (the outer-product recurrence of
+// qpalm_tpu/linalg/pallas_chol.py:_chol_kernel_loop): entry (k, l) less
+// R[i][k] R[i][l] for i = 0, 1, ..., k - 1 in turn, each product and each
+// difference rounded, then times inv = 1 / sqrtf of the pivot so reduced
+// (not rsqrtf: that is approximate), the diagonal pivot * inv.  M is n x n,
+// row-major, in shared memory, SPD; on return it holds R (R'R = M) with a
+// zero lower triangle.  Every thread of the block calls it.  Row by row,
+// left-looking: thread t forms entry (k, k + t) from R's finished rows,
+// with the pivot's sum beside its own, so a row's subtractions are chains
+// in registers, not steps between barriers: one barrier a row, and one
+// before the first.  A row's pivot is read a row ahead, since its diagonal
+// is overwritten while the row is formed.
+static __device__ void chol_upper_inplace(float* M, int n) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  for (int j = warp; j < n; j += nw)
+    for (int l = lane; l < j; l += 32) M[j * n + l] = 0.0f;
+  float mkk = M[0];
+  __syncthreads();
   for (int k = 0; k < n; ++k) {
-    const float akk = M[k * n + k];
-    const float inv = 1.0f / sqrtf(akk);  // not rsqrtf: that is approximate
-    for (int l = k + 1 + tid; l < n; l += nt) rt[l] = M[k * n + l] * inv;
-    __syncthreads();
-    for (int j = k + 1 + warp; j < n; j += nw) {
-      const float rj = rt[j];
-      for (int l = j + lane; l < n; l += 32) M[j * n + l] -= rj * rt[l];
+    float* rk = M + k * n;
+    const float mnext = k + 1 < n ? rk[n + k + 1] : 0.0f;
+    for (int l = k + tid; l < n; l += nt) {
+      float akk = mkk, v = rk[l];
+      for (int i = 0; i < k; ++i) {
+        const float a = M[i * n + k];
+        akk -= a * a;
+        v -= a * M[i * n + l];
+      }
+      const float inv = 1.0f / sqrtf(akk);
+      rk[l] = l == k ? akk * inv : v * inv;
     }
-    for (int l = tid; l < n; l += nt)
-      M[k * n + l] = l > k ? rt[l] : (l == k ? akk * inv : 0.0f);
+    mkk = mnext;
     __syncthreads();
   }
 }

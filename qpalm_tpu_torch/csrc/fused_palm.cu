@@ -28,13 +28,21 @@
 //
 // What bounds it on an H100: not bandwidth (each problem's 40 KB of data is
 // read once for ~100 iterations) and not f32 throughput (~1 MFLOP per
-// iteration), but the chain of dependent block barriers per iteration:
-// about 2n in the Cholesky, 55 reductions in the linesearch and a dozen
-// elsewhere.  Reductions carry several values per barrier and double-buffer
-// their scratch, so each costs one barrier; the triangular solves run in one
-// warp without block barriers; the Schur assembly (the only O(n^2 m) step)
-// uses 4x4 register tiles over float4 shared loads.
-//
+// iteration), but the chain of dependent steps of one iteration, which its
+// cycle counters split (fused_palm.profile): the Cholesky's n rows, the
+// solves' 2n steps, the linesearch's 28 reductions, and a dozen more.
+// Reductions carry several values per barrier and double-buffer their
+// scratch, so each costs one barrier, and the linesearch carries each
+// proposal's hinge sums into the next step instead of summing them again;
+// the Cholesky is left-looking, one barrier a row, each entry's
+// subtractions a chain in one thread's registers (common.cuh); the
+// triangular solves run in one warp without block barriers, each step's
+// newest value in a register; the Schur assembly (the only O(n^2 m) step)
+// uses 4x4 register tiles over float4 shared loads.  At three blocks per
+// SM the kernel has 80 registers a thread: designs that hold more live
+// values (a one-warp linesearch, register-resident solves, batched loads
+// in the Cholesky) spill and run slower (their times are in PERF.md).
+
 // The streaming tier (template STREAM) takes the shapes whose on-chip plan
 // exceeds a block's 227 KB: the Schur matrix alone is n^2 x 4 B, 496 KB at
 // n=352.  Q and A stay in global memory, M lives in a per-problem global
@@ -80,9 +88,11 @@ constexpr int SMEM_LIMIT = 232448;  // bytes one block may use on Hopper
 // the streaming tier's panels: A's rows per staging panel, M's rows per
 // Cholesky panel (a multiple of 8), each at most, and b at least
 constexpr int STREAM_P_MAX = 16, STREAM_B_MAX = 32, STREAM_B_MIN = 8;
+// a profiled launch's cycle counters, the whole loop last.  Streaming:
 // assembly, Gershgorin + Q, Cholesky panels, Cholesky trailing updates,
-// solves, the whole loop
-constexpr int PROF_SECTIONS = 6;
+// solves.  On chip: assembly, Gershgorin + I/gamma, Cholesky, solves, Qd
+// and Ad with the breakpoints, linesearch.  solver/fused.py names them.
+constexpr int PROF_STREAM = 6, PROF_SMEM = 7;
 
 // The streaming tier's shared memory, in floats: the 18 n- and 19 m-vectors
 // and the reduction scratch as on chip, and the staging region at offset
@@ -183,27 +193,53 @@ __device__ __forceinline__ void ab_at(float tau, float eta, float beta,
 
 // R'z = d then R x = z with the upper factor R in M, in warp 0 only: the
 // forward pass in saxpy form over the rows of R (z in zf), the backward one
-// by inner products; x overwrites d.  The caller synchronises after.
+// by inner products; x overwrites d.  Each step's newest value travels in a
+// register, not through shared memory and a __syncwarp: the pivot d_j,
+// which lane 0 updated last, is shuffled from lane 0, and every lane
+// computes x_k itself, so lane 0's next partial takes x_{k+1} from its
+// register.  The caller synchronises after.
 __device__ __forceinline__ void chol_solve_warp(const float* M, float* d,
                                                 float* zf, int n) {
   const int lane = threadIdx.x & 31;
   if (threadIdx.x >= 32) return;
+  float piv = d[0];  // on lane 0, d_j as the last step left it
   for (int j = 0; j < n; ++j) {
-    const float bj = d[j] / M[j * n + j];
-    for (int l = j + 1 + lane; l < n; l += 32) d[l] -= bj * M[j * n + l];
+    const float* Rj = M + j * n;
+    const float bj = __shfl_sync(QP_FULL_MASK, piv, 0) / Rj[j];
+    for (int l = j + 1 + lane; l < n; l += 32) {
+      const float v = d[l] - bj * Rj[l];
+      d[l] = v;
+      if (l == j + 1) piv = v;
+    }
     if (lane == 0) zf[j] = bj;
     __syncwarp();
   }
+  float xn = 0.0f;  // x_{k+1}, on every lane
   for (int k = n - 1; k >= 0; --k) {
+    const float* Rk = M + k * n;
     float s = 0.0f;
-    for (int l = k + 1 + lane; l < n; l += 32) s += M[k * n + l] * d[l];
+    for (int l = k + 1 + lane; l < n; l += 32)
+      s += Rk[l] * (l == k + 1 ? xn : d[l]);
     s = warp_sum(s);
-    if (lane == 0) d[k] = (zf[k] - s) / M[k * n + k];
+    xn = (zf[k] - s) / Rk[k];
+    if (lane == 0) d[k] = xn;
     __syncwarp();
   }
 }
 
-template <bool STREAM>
+// The on-chip plan in floats: Q, A, M, 18 n-vectors, 19 m-vectors and the
+// reduction scratch.  A profiled on-chip launch keeps its counters in
+// 8-byte slots after it, from the next even float.
+__host__ __device__ constexpr long long smem_plan_floats(int n, int m) {
+  return 2LL * n * n + (long long)m * n + 18LL * n + 19LL * m +
+         2 * RED_K * NWARP;
+}
+
+// PROF builds the on-chip tier's counters into a kernel of its own, so that
+// the unprofiled one keeps none, and keeps them in shared memory, since its
+// registers are short (the streaming tier tests gprof at run time and keeps
+// them in registers)
+template <bool STREAM, bool PROF>
 __global__ void __launch_bounds__(NT, STREAM ? 1 : 3) fused_palm_kernel(
     const float* __restrict__ gQ, const float* __restrict__ gA,
     const float* __restrict__ gq, const float* __restrict__ gbmin,
@@ -269,13 +305,24 @@ __global__ void __launch_bounds__(NT, STREAM ? 1 : 3) fused_palm_kernel(
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + stage_at);
   float* stg = sm + stage_at + 4;
 
-  // a profiled streaming launch: thread 0 sums clock64() cycles by section
-  long long prof[PROF_SECTIONS] = {0, 0, 0, 0, 0, 0}, tick = 0;
-  const bool profiling = STREAM && gprof != nullptr && tid == 0;
+  // a profiled launch: thread 0 sums clock64() cycles by section
+  constexpr int NPROF = STREAM ? PROF_STREAM : PROF_SMEM;
+  // the solves' section; on chip the Cholesky is 2, Qd/Ad 4, linesearch 5
+  constexpr int S_SOLVE = STREAM ? 4 : 3;
+  long long prof_r[STREAM ? NPROF : 1] = {}, tick = 0;
+  long long* prof_s =
+      reinterpret_cast<long long*>(sm + ((smem_plan_floats(n, m) + 1) & ~1));
+  auto prof = [&](int s) -> long long& {
+    if constexpr (STREAM) return prof_r[s];
+    else return prof_s[s];
+  };
+  const bool profiling = (STREAM || PROF) && gprof != nullptr && tid == 0;
+  if (profiling && !STREAM)
+    for (int k = 0; k < NPROF; ++k) prof(k) = 0;
   auto mark = [&](int s) {
     if (profiling) {
       const long long now = clock64();
-      if (s >= 0) prof[s] += now - tick;
+      if (s >= 0) prof(s) += now - tick;
       tick = now;
     }
   };
@@ -488,17 +535,18 @@ __global__ void __launch_bounds__(NT, STREAM ? 1 : 3) fused_palm_kernel(
       }
       for (int j = tid; j < n; j += NT) d[j] = Atyh[j] + q[j];
       __syncthreads();
-      if (STREAM)
-        stream::chol_blocked(M, stg, n, b, profiling, prof[2], prof[3]);
-      else
-        chol_upper_inplace(M, rt, n);
       mark(-1);
+      if (STREAM)
+        stream::chol_blocked(M, stg, n, b, profiling, prof(2), prof(3));
+      else
+        chol_upper_inplace(M, n);
+      mark(STREAM ? -1 : 2);
       if (STREAM)
         stream::solve_stream(M, d, zf, stg, bars, n, P);
       else
         chol_solve_warp(M, d, zf, n);
       __syncthreads();
-      mark(4);
+      mark(S_SOLVE);
       float v[2] = {0.0f, 0.0f};
       for (int j = tid; j < n; j += NT) v[0] += (Atyh[j] + q[j]) * d[j];
       for (int i = tid; i < m; i += NT) {
@@ -586,16 +634,16 @@ __global__ void __launch_bounds__(NT, STREAM ? 1 : 3) fused_palm_kernel(
       }
       mark(1);
       if (STREAM)
-        stream::chol_blocked(M, stg, n, b, profiling, prof[2], prof[3]);
+        stream::chol_blocked(M, stg, n, b, profiling, prof(2), prof(3));
       else
-        chol_upper_inplace(M, rt, n);
-      mark(-1);
+        chol_upper_inplace(M, n);
+      mark(STREAM ? -1 : 2);
       if (STREAM)  // d = M^-1 (-dphi)
         stream::solve_stream(M, d, zf, stg, bars, n, P);
       else
         chol_solve_warp(M, d, zf, n);
       __syncthreads();
-      mark(4);
+      mark(S_SOLVE);
       // Qd (+ d / gamma), Ad, and the linesearch's breakpoints
       float eta, beta;
       {
@@ -628,8 +676,12 @@ __global__ void __launch_bounds__(NT, STREAM ? 1 : 3) fused_palm_kernel(
         eta = v[0];
         beta = v[1];
       }
+      mark(STREAM ? -1 : 4);
 
-      // ---- sort-free exact linesearch (fused.py:467-536) ----
+      // ---- sort-free exact linesearch (fused.py:467-536).  Step t + 1
+      // evaluates the hinge sums at step t's proposal, which step t has just
+      // evaluated: they are carried, not summed again (27 evaluations, not
+      // 53; the same inputs in the same order give the same bits) ----
       float tau;
       {
         const float tiny = FLT_MIN;
@@ -656,23 +708,22 @@ __global__ void __launch_bounds__(NT, STREAM ? 1 : 3) fused_palm_kernel(
         float lo_t = 0.0f;
         tau = fminf(-b0 / fmaxf(a0, tiny), hi_t);
         tau = tau > 0.0f ? tau : 0.5f * hi_t;
+        float a, b;  // the hinge sums at tau
+        ab_at(tau, eta, beta, sad, alo, ahi, m, red, rp, a, b);
         for (int it = 0; it < 26; ++it) {
-          float a, b, pa, pb;
-          ab_at(tau, eta, beta, sad, alo, ahi, m, red, rp, a, b);
           float prop = -b / fmaxf(a, tiny);
           const float mid = 0.5f * (lo_t + hi_t);
           prop = (prop > lo_t && prop < hi_t) ? prop : mid;
-          ab_at(prop, eta, beta, sad, alo, ahi, m, red, rp, pa, pb);
-          const bool pos = fmaf(pa, prop, pb) > 0.0f;
+          ab_at(prop, eta, beta, sad, alo, ahi, m, red, rp, a, b);
+          const bool pos = fmaf(a, prop, b) > 0.0f;
           lo_t = pos ? lo_t : prop;
           hi_t = pos ? prop : hi_t;
           tau = prop;
         }
-        float a, b;
-        ab_at(tau, eta, beta, sad, alo, ahi, m, red, rp, a, b);
         const float tau_star = -b / fmaxf(a, tiny);
         tau = (ftz(a0 * tiny) + b0 > 0.0f) ? -b0 / a0 : tau_star;
       }
+      mark(STREAM ? -1 : 5);
 
       for (int j = tid; j < n; j += NT) {
         const float xj = x[j], dj = d[j];
@@ -712,9 +763,8 @@ __global__ void __launch_bounds__(NT, STREAM ? 1 : 3) fused_palm_kernel(
   // ---- write back ----
   __syncthreads();
   if (profiling) {
-    prof[PROF_SECTIONS - 1] = clock64() - t_loop;
-    for (int k = 0; k < PROF_SECTIONS; ++k)
-      gprof[pb * PROF_SECTIONS + k] = prof[k];
+    prof(NPROF - 1) = clock64() - t_loop;
+    for (int k = 0; k < NPROF; ++k) gprof[pb * NPROF + k] = prof(k);
   }
   for (int e = tid; e < 8 * n; e += NT) gnst[pb * 8 * n + e] = nv[e];
   for (int e = tid; e < 7 * m; e += NT) gmst[pb * 7 * m + e] = mv[e];
@@ -742,9 +792,7 @@ __global__ void __launch_bounds__(NT, STREAM ? 1 : 3) fused_palm_kernel(
 }  // namespace
 
 extern "C" int qp_fused_smem_bytes(int n, int m) {
-  return (int)(sizeof(float) *
-               (2 * (size_t)n * n + (size_t)m * n + 18 * (size_t)n +
-                19 * (size_t)m + 2 * RED_K * NWARP));
+  return (int)(sizeof(float) * smem_plan_floats(n, m));
 }
 
 extern "C" int qp_fused_stream_smem_bytes(int n, int m) {
@@ -760,12 +808,16 @@ extern "C" int qp_fused_stream_plan(int n, int m, int* out) {
   return 0;
 }
 
-// tier 0 runs the on-chip kernel (M and prof unused, may be null); tier 1
-// the streaming one, with M a (B, n, n) float scratch (only its upper
-// triangle is meaningful after a launch) and prof null or a (B, 6) int64
-// array that receives each block's clock64() cycles in the assembly, the
-// Gershgorin pass with + Q, the Cholesky's panels and its trailing updates
-// (the dual check's Cholesky of Q included), the solves, and the whole loop.
+// tier 0 runs the on-chip kernel (M unused, may be null); tier 1 the
+// streaming one, with M a (B, n, n) float scratch (only its upper triangle
+// is meaningful after a launch).  prof is null or an int64 array that
+// receives each block's clock64() cycles by section, the dual check's
+// Cholesky of Q and its solves included: (B, 6) streaming (the assembly,
+// the Gershgorin pass with + Q, the Cholesky's panels and its trailing
+// updates, the solves, the whole loop), (B, 7) on chip (the assembly, the
+// Gershgorin pass with + I/gamma, the Cholesky, the solves, Qd and Ad with
+// the breakpoints, the linesearch, the whole loop; a profiled on-chip
+// launch takes up to 60 bytes of shared memory more than the plan).
 extern "C" int qp_fused_palm(const float* Q, const float* A, const float* q,
                              const float* bmin, const float* bmax,
                              const float* Dinv, const float* Einv,
@@ -782,21 +834,19 @@ extern "C" int qp_fused_palm(const float* Q, const float* A, const float* q,
   memcpy(&fs, fset, sizeof(FSet));
   const StreamPlan plan = stream_plan(n, m);
   const int smem =
-      tier ? qp_fused_stream_smem_bytes(n, m) : qp_fused_smem_bytes(n, m);
+      tier ? qp_fused_stream_smem_bytes(n, m)
+           : qp_fused_smem_bytes(n, m) + (prof ? 4 + 8 * PROF_SMEM : 0);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  auto kernel = tier ? &fused_palm_kernel<true, false>
+                     : (prof ? &fused_palm_kernel<false, true>
+                             : &fused_palm_kernel<false, false>);
   cudaError_t e = cudaFuncSetAttribute(
-      tier ? &fused_palm_kernel<true> : &fused_palm_kernel<false>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  if (tier)
-    fused_palm_kernel<true><<<B, NT, smem, (cudaStream_t)stream>>>(
-        Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, M, prof, fs, n,
-        m, T, inner_max_iter, max_iter, scaling_on, proximal, nonconvex,
-        enable_dual, plan.P, plan.b, plan.stage);
-  else
-    fused_palm_kernel<false><<<B, NT, smem, (cudaStream_t)stream>>>(
-        Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, M, nullptr, fs,
-        n, m, T, inner_max_iter, max_iter, scaling_on, proximal, nonconvex,
-        enable_dual, 0, 0, 0);
+  kernel<<<B, NT, smem, (cudaStream_t)stream>>>(
+      Q, A, q, bmin, bmax, Dinv, Einv, cinv, nst, mst, sc, M, prof, fs, n, m,
+      T, inner_max_iter, max_iter, scaling_on, proximal, nonconvex,
+      enable_dual, tier ? plan.P : 0, tier ? plan.b : 0,
+      tier ? plan.stage : 0);
   return (int)cudaGetLastError();
 }

@@ -73,7 +73,7 @@ def cholesky_upper(M: torch.Tensor) -> torch.Tensor:
     if n != n2:
         raise ValueError(f"cholesky_upper: square matrices needed, got "
                          f"{tuple(M.shape)}")
-    smem = (n * n + n) * 4
+    smem = n * n * 4
     if smem > SMEM_LIMIT:
         raise ValueError(f"cholesky_upper: n={n} needs {smem} bytes of "
                          f"shared memory, over {SMEM_LIMIT}")

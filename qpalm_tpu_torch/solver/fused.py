@@ -572,10 +572,12 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
     `fused_palm.stream_launches` those of the streaming tier.  While
     `fused_palm.events` is a list, each launch appends to it the CUDA
     events recorded just before and just after it.  While
-    `fused_palm.profile` is a list, each streaming launch appends a (B, 6)
-    int64 tensor of each block's clock cycles in the Schur assembly, the
-    Gershgorin pass with + Q, the Cholesky's panels, its trailing updates,
-    the triangular solves and the whole loop (`PROFILE_SECTIONS`)."""
+    `fused_palm.profile` is a list, each launch appends an int64 tensor of
+    each block's clock cycles by section, then in the whole loop:
+    (B, 6) streaming (`PROFILE_SECTIONS`), (B, 7) on chip
+    (`SMEM_PROFILE_SECTIONS`); a profiled on-chip launch runs a build of
+    the kernel with the counters (the same arithmetic, and up to 60 bytes
+    of shared memory more than `fused_smem_bytes`)."""
     B, n, _ = data.Q.shape
     m = data.A.shape[1]
     stream = _tier(qa_panel, n, m) == "stream"
@@ -609,8 +611,9 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
     scratch = torch.empty((B, n, n), dtype=torch.float32,
                           device=data.Q.device) if stream else None
     prof = None
-    if stream and fused_palm.profile is not None:
-        prof = torch.zeros((B, len(PROFILE_SECTIONS) + 1), dtype=torch.int64,
+    if fused_palm.profile is not None:
+        names = PROFILE_SECTIONS if stream else SMEM_PROFILE_SECTIONS
+        prof = torch.zeros((B, len(names) + 1), dtype=torch.int64,
                            device=data.Q.device)
         fused_palm.profile.append(prof)
     fset = _float_settings(s)
@@ -640,18 +643,22 @@ fused_palm.launches = 0
 fused_palm.stream_launches = 0
 fused_palm.events = None
 fused_palm.profile = None
-# the streaming kernel's cycle counters before the whole loop's
+# the cycle counters before the whole loop's: the streaming kernel's, and
+# the on-chip kernel's (the dual check's Cholesky and solves included)
 PROFILE_SECTIONS = ("assembly", "gershgorin_q", "cholesky_panels",
                     "cholesky_trailing", "solves")
+SMEM_PROFILE_SECTIONS = ("assembly", "gershgorin", "cholesky", "solves",
+                         "qd_ad", "linesearch")
 
 
 def profile_split(prof: torch.Tensor, ms: float) -> dict:
-    """The milliseconds `ms` of a profiled streaming launch split by the
-    summed cycle counters of its blocks (`fused_palm.profile`), the cycles
-    outside the sections as "rest"."""
+    """The milliseconds `ms` of a profiled launch of either tier split by
+    the summed cycle counters of its blocks (`fused_palm.profile`), the
+    cycles outside the sections as "rest"."""
+    names = PROFILE_SECTIONS if prof.shape[1] == len(PROFILE_SECTIONS) + 1 \
+        else SMEM_PROFILE_SECTIONS
     tot = prof.double().sum(0).cpu()
-    split = {k: float(ms * tot[i] / tot[-1])
-             for i, k in enumerate(PROFILE_SECTIONS)}
+    split = {k: float(ms * tot[i] / tot[-1]) for i, k in enumerate(names)}
     split["rest"] = ms - sum(split.values())
     return split
 

@@ -92,6 +92,17 @@ def test_cuda_kernels_match_plain(n, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 64, 241])
+def test_cuda_factor_is_bit_identical_to_plain(n):
+    """K2a keeps every entry's arithmetic of cholesky_upper_plain (the
+    look-ahead only moves when row k + 1 is formed): bit for bit, up to the
+    largest n whose matrix fits a block's shared memory."""
+    dev = _cuda()
+    M = torch.from_numpy(_spd_batch(9, n, seed=6)).to(dev)
+    assert torch.equal(cholesky_upper(M), cholesky_upper_plain(M))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     dev = _cuda()
     with pytest.raises(ValueError):

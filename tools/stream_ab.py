@@ -1,71 +1,102 @@
-"""Time K1's streaming kernel in one or more copies of the port, on the card.
+"""Time K1 in one or more copies of the port, on the card.
 
-    python tools/stream_ab.py [DIR ...]
+    python tools/stream_ab.py [--tier stream|smem] [DIR ...]
 
 Each DIR holds a `qpalm_tpu_torch` package (default: this checkout's).
 Each copy is built and timed in a process of its own, in the order given,
-so two versions compare within one run on one card (A B B A): randomQP
-n=352, B=128, the workloads sweep's settings, 30 iterations from the same
-state, the mean of 3 launches after a warm-up by CUDA events, and the
-split of one launch by the kernel's cycle counters
-(`fused.profile_split`).  One JSON line per copy.
+so two versions compare within one run on one card (A B B A).  Each launch
+is timed as the mean of 3 launches after a warm-up by CUDA events, from
+the same state, and split by the kernel's cycle counters
+(`fused.profile_split`) where the copy has them.  One JSON line per copy,
+with a hash of the final state: copies that keep the kernel's arithmetic
+print the same one.
+
+`--tier stream` (the default): the streaming kernel at randomQP n=352,
+B=128, the workloads sweep's settings, 30 iterations.
+
+`--tier smem`: the on-chip kernel at the headline round (B=512, n=64,
+m=96, bench.py's f32 settings, max_iter 96) and at BOXQP-d n=64, m=80,
+B=256 under its gamma pins (scripts/bench_nonconvex.py's f32 settings, 400
+iterations, which every lane runs).  A copy from before the on-chip
+counters is timed with no split.
 """
 
+import argparse
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-T = 30
 
 CHILD = r"""
-import json, sys
+import hashlib, json, sys
 sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
-from qpalm_tpu_torch import sweep
 from qpalm_tpu_torch.batch import stack_problems
 from qpalm_tpu_torch.solver import fused as F
 
-T = int(sys.argv[2])
-s = sweep.S32
-data = stack_problems(sweep.row_problems("randomQP", 352), np.float32,
-                      device="cuda")
-sd, scal, st = F._prepare(data, s)
-F.fused_palm(sd, scal, st, T, s)
-start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-torch.cuda.synchronize()
-start.record()
-for _ in range(3):
-    out = F.fused_palm(sd, scal, st, T, s)
-end.record()
-torch.cuda.synchronize()
-ms = start.elapsed_time(end) / 3
-F.fused_palm.profile = []
-F.fused_palm(sd, scal, st, T, s)
-prof = F.fused_palm.profile[0]
-if hasattr(F, "profile_split"):
-    split = F.profile_split(prof, ms)
-else:  # a copy from before the six sections
-    tot = prof.double().sum(0).cpu()
-    names = ("assembly", "gershgorin_q", "cholesky", "solves")
-    split = {k: float(ms * tot[i] / tot[-1]) for i, k in enumerate(names)}
-    split["rest"] = ms - sum(split.values())
+def timed(sd, scal, st, T, s):
+    F.fused_palm(sd, scal, st, T, s)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        out = F.fused_palm(sd, scal, st, T, s)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 3
+    F.fused_palm.profile = []
+    F.fused_palm(sd, scal, st, T, s)
+    profs, F.fused_palm.profile = F.fused_palm.profile, None
+    split = F.profile_split(profs[0], ms) if profs else None
+    sha = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in out))
+    return dict(ms=ms, iterations=int(out.sc[:, F._ITER].sum()),
+                max_iterations=int(out.sc[:, F._ITER].max()),
+                state_sha256=sha.hexdigest()[:16], split_ms=split)
+
+runs = {}
+if sys.argv[2] == "stream":
+    from qpalm_tpu_torch import sweep
+    s = sweep.S32
+    data = stack_problems(sweep.row_problems("randomQP", 352), np.float32,
+                          device="cuda")
+    runs["randomQP 352"] = timed(*F._prepare(data, s), 30, s)
+else:
+    from qpalm_tpu_torch.solver.nonconvex import batch_gamma_pins
+    from qpalm_tpu_torch.types import Settings
+    from qpalm_tpu_torch.workloads import boxqp, make_problems
+    s = Settings(dtype="float32", eps_abs=5e-5, eps_rel=5e-5, max_iter=96,
+                 scaling=2, max_refine=0, delta=10.0)
+    data = stack_problems(make_problems(512, 64, 96, seed=7), np.float32,
+                          device="cuda")
+    runs["headline"] = timed(*F._prepare(data, s), 96, s)
+    s = Settings(dtype="float32", nonconvex=True, eps_abs=1e-4,
+                 eps_rel=1e-4, max_iter=400, scaling=2, max_refine=0,
+                 verbose=False)
+    data = stack_problems([boxqp(64, seed=64000 + i) for i in range(256)],
+                          np.float32, device="cuda")
+    gi, gm = batch_gamma_pins(data, s)
+    s = s.replace(proximal=True)
+    runs["boxqp 64"] = timed(*F._prepare(data, s, gamma_init=gi,
+                                         gamma_max=gm), 400, s)
 print(json.dumps({"dir": sys.argv[1], "device": torch.cuda.get_device_name(0),
-                  "ms": ms, "iterations": int(out.sc[:, F._ITER].sum()),
-                  "split_ms": split}))
+                  "tier": sys.argv[2], "runs": runs}))
 """
 
 
 def main(argv=None):
-    dirs = (argv if argv is not None else sys.argv[1:]) or [str(ROOT)]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tier", choices=("stream", "smem"), default="stream")
+    ap.add_argument("dirs", nargs="*")
+    args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    for d in dirs:
+    for d in args.dirs or [str(ROOT)]:
         proc = subprocess.run([sys.executable, "-c", CHILD,
-                               str(Path(d).resolve()), str(T)],
+                               str(Path(d).resolve()), args.tier],
                               capture_output=True, text=True)
         if proc.returncode:
             raise SystemExit(f"{d}: exit {proc.returncode}\n{proc.stderr}")
