@@ -3,11 +3,20 @@ H100.
 
 The port mirrors qpalm_tpu's module paths and names, so each module has a
 counterpart in the JAX package that it is held against in the tests.  It
-imports torch and numpy, never jax and never qpalm_tpu.  Three paths are
+imports torch and numpy, never jax and never qpalm_tpu.  Four paths are
 ported so far.  The certified batched pipeline of bench.py:
 
     batch.stack_problems -> scaling.scale_data -> solver.fused (kernel K1)
-    -> polish_device.polish_batch (kernel K2) -> referee.referee
+    -> polish_device.polish_batch (kernel K2) -> bench.rescue_round (the
+    rejected lanes: baseline_c.solve, polish.polish_batch_np,
+    finish_np.palm_finish_np) -> referee.check
+
+the bench that measures it (python -m qpalm_tpu_torch.bench), bench.py's
+protocol with the C baseline as its divisor:
+
+    bench.run -> rounds of the pipeline above, the rescue in a background
+    thread -> the referee on every rep -> bench.measure_baseline
+    (baseline_c, native/qpalm_baseline.cpp built by g++ at first use)
 
 the batch front end, for convex and nonconvex batches, with dual-objective
 termination, warm starts and host chunking:
@@ -30,10 +39,11 @@ tier's memory-plan probes.  A CPU tensor runs each kernel's plain PyTorch
 twin instead; a CUDA tensor runs the kernel or raises.  What is not ported
 raises NotImplementedError naming its ROADMAP.md item.
 
-The host-side numpy modules of the JAX package (its f64 polish, finisher
-and generators) cannot be imported without JAX (qpalm_tpu/__init__.py
-imports it), so the port keeps its own copies of them (polish.py,
-finish_np.py, workloads.py), held against the originals in the tests.
+The host-side modules of the JAX package (its f64 polish, finisher,
+generators and C baseline binding) cannot be imported without JAX
+(qpalm_tpu/__init__.py imports it), so the port keeps its own copies of
+them (polish.py, finish_np.py, workloads.py, baseline_c.py), held against
+the originals in the tests.
 
     minimize   0.5 x' Q x + q' x + c
     subject to bmin <= A x <= bmax

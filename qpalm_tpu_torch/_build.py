@@ -10,6 +10,11 @@ once.  Nothing is built or loaded at import.
 Each C entry point launches on the stream it is given, allocates nothing,
 synchronises nothing, and returns cudaGetLastError(); `check_launch` turns
 a nonzero code into an exception.
+
+`build_baseline()` compiles the native C/LAPACK baseline solver,
+native/qpalm_baseline.cpp, with g++ into the same directory (the host side
+of the bench: its divisor and the headline's rescue, baseline_c.py).  It
+links the first BLAS/LAPACK of `blas_routes()` that builds and loads.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -35,7 +41,7 @@ _I = ctypes.c_int
 # entry point -> argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "qp_chol": [_P, _P, _I, _I, _P],
-    "qp_chol_solve": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "qp_chol_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "qp_fused_palm": [_P] * 8 + [_P] * 6 + [_I] * 11 + [_P],
     "qp_fused_smem_bytes": [_I, _I],
     "qp_fused_stream_smem_bytes": [_I, _I],
@@ -130,3 +136,70 @@ def kernels() -> ctypes.CDLL:
 def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+BASELINE_SRC = _PKG.parent / "native" / "qpalm_baseline.cpp"
+# native/Makefile's flags for libqpalm_baseline.so
+CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-O3",
+             "-shared"]
+# the BLAS and LAPACK routines qpalm_baseline.cpp calls
+BLAS_ROUTINES = ("dgemv_", "dsymv_", "dsyrk_", "dpotrf_", "dpotrs_")
+
+
+def _scipy_openblas() -> Path | None:
+    """The OpenBLAS that scipy's wheel bundles (scipy.libs/), if any."""
+    spec = importlib.util.find_spec("scipy")
+    if spec is None or spec.origin is None:
+        return None
+    found = sorted((Path(spec.origin).parent.parent / "scipy.libs")
+                   .glob("libscipy_openblas*.so"))
+    return found[0] if found else None
+
+
+def blas_routes() -> list[tuple[str, list[str]]]:
+    """(name, g++ link arguments) of each way to link BLAS and LAPACK, in
+    the order `build_baseline` tries them: the system's liblapack.so.3 and
+    libblas.so.3 (native/Makefile's link line), then scipy's bundled
+    OpenBLAS, which exports the routines under a `scipy_` prefix."""
+    routes = [("system liblapack.so.3 + libblas.so.3",
+               ["-l:liblapack.so.3", "-l:libblas.so.3"])]
+    ob = _scipy_openblas()
+    if ob is not None:
+        routes.append((f"scipy's bundled OpenBLAS ({ob.name})",
+                       [*(f"-D{r}=scipy_{r}" for r in BLAS_ROUTINES),
+                        str(ob), f"-Wl,-rpath,{ob.parent}"]))
+    return routes
+
+
+def build_baseline() -> tuple[ctypes.CDLL, str]:
+    """Compile native/qpalm_baseline.cpp into a shared library unless the
+    library for this source and route exists, and load it, trying
+    `blas_routes()` in order: a route counts when its library builds and
+    loads (a host may link against a LAPACK that its loader cannot find).
+    Returns (the loaded library, the BLAS route's name); raises
+    RuntimeError with every route's error when none does."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++ or c++) on PATH")
+    errors = []
+    for name, link in blas_routes():
+        h = hashlib.sha256(BASELINE_SRC.read_bytes())
+        h.update(" ".join(CXX_FLAGS + link).encode())
+        out = BUILD_DIR / f"libqpalm_baseline_{h.hexdigest()[:16]}.so"
+        if not out.exists():
+            BUILD_DIR.mkdir(exist_ok=True)
+            tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+            cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(BASELINE_SRC), *link]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                errors.append(f"{name}: {' '.join(cmd)}\n"
+                              f"{proc.stderr.strip()}")
+                continue
+            os.replace(tmp, out)
+        try:
+            return ctypes.CDLL(str(out)), name
+        except OSError as err:
+            errors.append(f"{name}: built, but does not load: {err}")
+    raise RuntimeError("the baseline library does not build and load:\n"
+                       + "\n".join(errors))

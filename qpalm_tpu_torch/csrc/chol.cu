@@ -9,16 +9,39 @@
 // is 8 MB, read once, so the kernels are latency bound, not bandwidth
 // bound: the factor is n rows of one block barrier each, every entry's
 // subtractions a chain in one thread's registers (common.cuh), and the
-// solve is 2n dependent steps per right-hand side.  The design keeps
-// every step in shared memory (16 KB per matrix at n=64, so several blocks
-// share an SM and hide each other's barriers), and the solve gives each
-// right-hand side its own thread, so the identity right-hand sides of the
-// polish's explicit inverse run as 64 independent threads with no barrier.
+// solve is 2n dependent steps per right-hand side.  The factor keeps every
+// step in shared memory (16 KB per matrix at n=64, so several blocks share
+// an SM and hide each other's barriers).
+//
+// The solve gives each right-hand-side column its own thread, with no
+// block barrier after R is staged; a block takes the columns of one
+// matrix.  For n a multiple of PANEL (the polish's n_pad=64 among them)
+// it is blocked: the column lives in shared memory, and each step of a
+// rolled loop brings one panel of PANEL entries into registers and applies
+// a PANEL x PANEL block of R to it, read as float4 loads that every thread
+// of the warp shares (a broadcast).  R comes in by one bulk asynchronous
+// copy while the threads load their columns, and is transposed in shared
+// memory for the backward pass, so that both passes read rows.  A block
+// takes 32 or 64 columns (the wrapper takes 32 where 64 would leave SMs
+// idle, as at the polish's B=64 second round).  Other n keep the column
+// in shared memory entry by entry.  Both run one order, which
+// linalg/chol.py:cholesky_solve_plain repeats: forward substitution in
+// saxpy form over rows of R (x_l -= y_j R_jl for j = 0, 1, ...), then
+// backward substitution in column form (x_l /= R_ll, then x_r -= R_rl x_l
+// for r < l, for l = n - 1 down to 0), each product and each difference
+// rounded (built --fmad=false), and a true division: blocking moves no
+// subtraction of an entry past another.
+//
+// A design that held the whole column in registers, every loop unrolled
+// at compile time, ran 0.040 ms at (512, 64, 64) and at (64, 64, 64)
+// whatever the order of its loads; the blocked loops are short and run
+// 0.0305 and 0.0208 ms there (PERF.md, NVIDIA H100 80GB HBM3, 700 W).
 //
 // Entry points (plain C, for ctypes) launch on the given stream, allocate
 // nothing, do not synchronise, and return cudaGetLastError().
 
 #include "common.cuh"
+#include "stream.cuh"
 
 namespace {
 
@@ -35,10 +58,9 @@ chol_kernel(const float* __restrict__ gM, float* __restrict__ gR, int n) {
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) gR[off + e] = M[e];
 }
 
-// R'R x = b for one matrix and one block of `cols` right-hand-side columns;
-// thread c owns column c: forward substitution in saxpy form over rows of
-// R, then backward substitution by inner products (the order of
-// _solve_kernel_loop).  b and x are (n, k) row-major per matrix.
+// R'R x = b for one matrix and one block of `cols` right-hand-side columns,
+// the column in shared memory (any n); thread c owns column c.  b and x are
+// (n, k) row-major per matrix.
 __global__ void chol_solve_kernel(const float* __restrict__ gR,
                                   const float* __restrict__ gb,
                                   float* __restrict__ gx, int n, int k,
@@ -61,12 +83,153 @@ __global__ void chol_solve_kernel(const float* __restrict__ gR,
     for (int l = j + 1; l < n; ++l) X[l * cols + c] -= yj * R[j * n + l];
     X[j * cols + c] = yj;
   }
-  for (int r = n - 1; r >= 0; --r) {
-    float dot = 0.0f;
-    for (int l = r + 1; l < n; ++l) dot += R[r * n + l] * X[l * cols + c];
-    X[r * cols + c] = (X[r * cols + c] - dot) / R[r * n + r];
+  for (int l = n - 1; l >= 0; --l) {
+    const float xl = X[l * cols + c] / R[l * n + l];
+    X[l * cols + c] = xl;
+    for (int r = 0; r < l; ++r) X[r * cols + c] -= R[r * n + l] * xl;
   }
   for (int l = 0; l < n; ++l) gx[boff + (size_t)l * k + col] = X[l * cols + c];
+}
+
+constexpr int PANEL = 8;
+
+__device__ __forceinline__ void load8(float (&v)[PANEL], const float* p) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[PANEL]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// n / d, rounded as `/` is.  The identity right-hand sides of the polish
+// give a zero n at every forward pivot above the column's 1, and a warp
+// whose threads divide zeros took longer in the forward pass than in the
+// backward one, which has as many operations (cycle stamps, PERF.md):
+// the division's check sends a zero numerator down its slow path.
+// The quotient of a zero by a finite nonzero d is the zero of their
+// signs, formed here without dividing.
+__device__ __forceinline__ float div_rn(float n, float d) {
+  const bool zero = n == 0.0f && fabsf(d) > 0.0f && fabsf(d) < INFINITY;
+  const float q = __fdiv_rn(zero ? 1.0f : n, d);
+  return zero ? __int_as_float((__float_as_int(n) ^ __float_as_int(d)) &
+                               0x80000000)
+              : q;
+}
+
+// xq[t] -= a[i] * rows[i][t] for i = 0, ..., PANEL - 1 in turn (in
+// descending i where `down`): the PANEL rows of the block are loaded
+// first, so that their loads are in flight together
+template <bool down>
+__device__ __forceinline__ void apply_block(float (&xq)[PANEL],
+                                            const float (&a)[PANEL],
+                                            const float* rows, int stride) {
+  float blk[PANEL][PANEL];
+#pragma unroll
+  for (int i = 0; i < PANEL; ++i) load8(blk[i], rows + i * stride);
+#pragma unroll
+  for (int s = 0; s < PANEL; ++s) {
+    const int i = down ? PANEL - 1 - s : s;
+#pragma unroll
+    for (int t = 0; t < PANEL; ++t) xq[t] = xq[t] - blk[i][t] * a[i];
+  }
+}
+
+// dynamic shared memory of the blocked solve: R (n x n), its transpose T
+// and the columns X (rows of n + 4 floats, 16-byte aligned and, read as
+// float4, free of bank conflicts); two mbarriers take 16 bytes more
+__host__ __device__ constexpr size_t panel_smem_floats(int n, int cols) {
+  return (size_t)n * n + (size_t)(n + cols) * (n + 4);
+}
+
+// R'R x = b by panels, n a multiple of PANEL, R 16-byte aligned per matrix;
+// thread c owns column blockIdx.y * cols + c.
+__global__ void __launch_bounds__(64)
+chol_solve_panel_kernel(const float* __restrict__ gR,
+                        const float* __restrict__ gb, float* __restrict__ gx,
+                        int n, int k, int cols) {
+  extern __shared__ float sm[];  // 16-byte aligned, as every offset below
+  const int ts = n + 4;
+  float* R = sm;          // n x n
+  float* T = R + n * n;   // n x ts, T[l][r] = R[r][l]
+  float* X = T + n * ts;  // cols x ts, thread c's column from X + c * ts
+  __shared__ uint64_t bars[2];
+  if (threadIdx.x == 0) {
+    stream::bars_init(bars);
+    stream::bulk_load(R, gR + (size_t)blockIdx.x * n * n,
+                      (uint32_t)(n * n * sizeof(float)), bars);
+  }
+  const int col = blockIdx.y * cols + threadIdx.x;
+  const bool active = col < k;
+  const size_t boff = (size_t)blockIdx.x * n * k;
+  float* xc = X + threadIdx.x * ts;
+  if (active) {
+#pragma unroll 16
+    for (int l = 0; l < n; ++l) xc[l] = gb[boff + (size_t)l * k + col];
+  }
+  __syncthreads();  // the barrier's init before the waits
+  stream::bar_wait(bars, 0);
+  for (int e = threadIdx.x; e < n * n / 4; e += blockDim.x) {
+    const float4 v = reinterpret_cast<const float4*>(R)[e];
+    const int r = 4 * e / n, c0 = 4 * e % n;
+    T[(c0 + 0) * ts + r] = v.x;
+    T[(c0 + 1) * ts + r] = v.y;
+    T[(c0 + 2) * ts + r] = v.z;
+    T[(c0 + 3) * ts + r] = v.w;
+  }
+  __syncthreads();
+  if (!active) return;
+  const int np = n / PANEL;
+  // forward: panel p's pivots, then their rows of R applied to panels q > p
+  for (int p = 0; p < np; ++p) {
+    const int p0 = p * PANEL;
+    float xb[PANEL];
+    load8(xb, xc + p0);
+#pragma unroll
+    for (int i = 0; i < PANEL; ++i) {
+      float rv[PANEL];
+      load8(rv, R + (p0 + i) * n + p0);
+      const float y = div_rn(xb[i], rv[i]);
+#pragma unroll
+      for (int t = i + 1; t < PANEL; ++t) xb[t] = xb[t] - y * rv[t];
+      xb[i] = y;
+    }
+    store8(xc + p0, xb);
+    for (int q0 = p0 + PANEL; q0 < n; q0 += PANEL) {
+      float xq[PANEL];
+      load8(xq, xc + q0);
+      apply_block<false>(xq, xb, R + p0 * n + q0, n);
+      store8(xc + q0, xq);
+    }
+  }
+  // backward: panel p's values (last panel first), then their columns of R
+  // (rows of T) applied to panels q < p
+  for (int p = np - 1; p >= 0; --p) {
+    const int p0 = p * PANEL;
+    float xb[PANEL];
+    load8(xb, xc + p0);
+#pragma unroll
+    for (int i = PANEL - 1; i >= 0; --i) {
+      float tv[PANEL];
+      load8(tv, T + (p0 + i) * ts + p0);
+      const float xl = div_rn(xb[i], tv[i]);
+#pragma unroll
+      for (int t = 0; t < i; ++t) xb[t] = xb[t] - tv[t] * xl;
+      xb[i] = xl;
+    }
+    store8(xc + p0, xb);
+    for (int q0 = 0; q0 < p0; q0 += PANEL) {
+      float xq[PANEL];
+      load8(xq, xc + q0);
+      apply_block<true>(xq, xb, T + p0 * ts + q0, ts);
+      store8(xc + q0, xq);
+    }
+  }
+#pragma unroll 8
+  for (int l = 0; l < n; ++l) gx[boff + (size_t)l * k + col] = xc[l];
 }
 
 }  // namespace
@@ -81,15 +244,28 @@ extern "C" int qp_chol(const float* M, float* R, int B, int n, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// `cols` right-hand sides per block; `panel` picks the blocked kernel (n a
+// multiple of PANEL, cols 32 or 64, R 16-byte aligned), else cols <= 64.
 extern "C" int qp_chol_solve(const float* R, const float* b, float* x, int B,
-                             int n, int k, int cols, void* stream) {
+                             int n, int k, int cols, int panel,
+                             void* stream) {
   if (B == 0 || n == 0 || k == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(B, (k + cols - 1) / cols);
+  if (panel) {
+    const int smem = (int)(panel_smem_floats(n, cols) * sizeof(float));
+    cudaError_t e = cudaFuncSetAttribute(
+        chol_solve_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    const int threads = k < cols ? (k + 31) / 32 * 32 : cols;
+    chol_solve_panel_kernel<<<grid, threads, smem, s>>>(R, b, x, n, k, cols);
+    return (int)cudaGetLastError();
+  }
   const int smem = (int)((size_t)(n * n + n * cols) * sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(
       chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B, (k + cols - 1) / cols);
-  chol_solve_kernel<<<grid, cols, smem, (cudaStream_t)stream>>>(R, b, x, n, k,
-                                                                cols);
+  chol_solve_kernel<<<grid, cols, smem, s>>>(R, b, x, n, k, cols);
   return (int)cudaGetLastError();
 }

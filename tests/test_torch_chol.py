@@ -71,6 +71,39 @@ def test_solve_plain_identity_rhs_gives_inverse():
     assert np.allclose(x0, Minv[:, :, 0], rtol=0, atol=1e-7)
 
 
+def _solve_in_kernel_order(R, b):
+    """csrc/chol.cu's solve as scalar float32 steps, one column at a time:
+    forward x_l -= y_j R_jl, then backward x_l /= R_ll and x_r -= R_rl x_l
+    for r < l, l from n - 1 down."""
+    f = np.float32
+    x = b.astype(f).copy()
+    B, n, k = x.shape
+    for i in range(B):
+        for c in range(k):
+            v = x[i, :, c]
+            for j in range(n):
+                yj = f(v[j] / R[i, j, j])
+                for l in range(j + 1, n):
+                    v[l] = f(v[l] - f(yj * R[i, j, l]))
+                v[j] = yj
+            for l in range(n - 1, -1, -1):
+                v[l] = f(v[l] / R[i, l, l])
+                for r in range(l):
+                    v[r] = f(v[r] - f(R[i, r, l] * v[l]))
+    return x
+
+
+@pytest.mark.parametrize("n", [1, 7, 16])
+def test_solve_twin_sums_in_the_kernel_order(n):
+    """The twin updates whole rows and columns at once; it rounds as the
+    kernel's scalar steps do, bit for bit."""
+    M = _spd_batch(2, n, seed=7)
+    R = cholesky_upper_plain(torch.from_numpy(M))
+    b = np.random.default_rng(8).standard_normal((2, n, 3)).astype(np.float32)
+    got = cholesky_solve_plain(R, torch.from_numpy(b)).numpy()
+    assert np.array_equal(got, _solve_in_kernel_order(R.numpy(), b))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k", [(64, 0), (64, 64), (24, 7), (100, 130)])
 def test_cuda_kernels_match_plain(n, k):
@@ -87,8 +120,8 @@ def test_cuda_kernels_match_plain(n, k):
     b = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
     x = cholesky_solve(R, b)
     xp = cholesky_solve_plain(R, b)
-    rel = ((x - xp).abs().max() / xp.abs().max()).item()
-    assert rel < 1e-4, rel
+    # K2b sums in the twin's order: bit for bit
+    assert torch.equal(x, xp)
 
 
 @pytest.mark.cuda
@@ -100,6 +133,30 @@ def test_cuda_factor_is_bit_identical_to_plain(n):
     dev = _cuda()
     M = torch.from_numpy(_spd_batch(9, n, seed=6)).to(dev)
     assert torch.equal(cholesky_upper(M), cholesky_upper_plain(M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,k", [(512, 64, -1), (64, 64, 64), (37, 24, 7),
+                                   (37, 100, 130), (9, 1, 1), (9, 1, 0),
+                                   (37, 16, 5), (37, 120, 40), (37, 64, 0),
+                                   (5, 64, 200), (37, 160, 64)])
+def test_cuda_solve_is_bit_identical_to_plain(B, n, k):
+    """K2b against its twin bit for bit: the blocked kernel (n a multiple
+    of 8 whose plan fits, 32 or 64 columns a block) and the entry-by-entry
+    one (n = 1, 100, and 160, whose blocked plan is over 227 KB); k = -1 is
+    the polish's identity right-hand sides, k = 0 one vector."""
+    dev = _cuda()
+    R = cholesky_upper(torch.from_numpy(_spd_batch(B, n, seed=9)).to(dev))
+    if k < 0:
+        b = torch.eye(n, device=dev).expand(B, n, n).contiguous()
+    else:
+        rng = np.random.default_rng(10)
+        b = torch.from_numpy(rng.standard_normal(
+            (B, n) if k == 0 else (B, n, k)).astype(np.float32)).to(dev)
+    before = cholesky_solve.launches
+    x = cholesky_solve(R, b)
+    assert cholesky_solve.launches == before + 1
+    assert torch.equal(x, cholesky_solve_plain(R, b))
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ PORT_MODULES = [
     "qpalm_tpu_torch.solver.nonconvex", "qpalm_tpu_torch.linalg.dense",
     "qpalm_tpu_torch.polish", "qpalm_tpu_torch.finish_np",
     "qpalm_tpu_torch.sweep", "qpalm_tpu_torch.probe",
+    "qpalm_tpu_torch.baseline_c", "qpalm_tpu_torch.bench",
 ]
 
 

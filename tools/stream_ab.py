@@ -1,6 +1,7 @@
-"""Time K1 in one or more copies of the port, on the card.
+"""Time K1, or K2's solve, in one or more copies of the port, on the card.
 
-    python tools/stream_ab.py [--tier stream|smem] [DIR ...]
+    python tools/stream_ab.py [--tier stream|smem] [--kernel k1|chol_solve]
+                              [DIR ...]
 
 Each DIR holds a `qpalm_tpu_torch` package (default: this checkout's).
 Each copy is built and timed in a process of its own, in the order given,
@@ -19,6 +20,13 @@ m=96, bench.py's f32 settings, max_iter 96) and at BOXQP-d n=64, m=80,
 B=256 under its gamma pins (scripts/bench_nonconvex.py's f32 settings, 400
 iterations, which every lane runs).  A copy from before the on-chip
 counters is timed with no split.
+
+`--kernel chol_solve`: K2b (`linalg.chol.cholesky_solve`) with identity
+right-hand sides, as the polish calls it, at (512, 64, 64) and at the
+second round's (64, 64, 64), each the mean of 100 launches by CUDA events
+after 0.3 s of warm-up, queued behind a device sleep so that the host's
+time per call is not counted, from the factor of chip_smoke.py phase 3's
+SPD batch.
 """
 
 import argparse
@@ -30,7 +38,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 CHILD = r"""
-import hashlib, json, sys
+import hashlib, json, sys, time
 sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
 from qpalm_tpu_torch.batch import stack_problems
@@ -56,7 +64,34 @@ def timed(sd, scal, st, T, s):
                 state_sha256=sha.hexdigest()[:16], split_ms=split)
 
 runs = {}
-if sys.argv[2] == "stream":
+if sys.argv[2] == "chol_solve":
+    from qpalm_tpu_torch.linalg import chol
+    G = np.random.default_rng(0).standard_normal((512, 64, 64)).astype(
+        np.float32)
+    M = torch.from_numpy(G @ np.transpose(G, (0, 2, 1))
+                         + 64 * np.eye(64, dtype=np.float32)).cuda()
+    R = chol.cholesky_upper(M)
+    for B in (512, 64):
+        Rb = R[:B].contiguous()
+        eye = torch.eye(64, device="cuda").expand(B, 64, 64).contiguous()
+        out = chol.cholesky_solve(Rb, eye)
+        warm_until = time.perf_counter() + 0.3  # the card raises its clock
+        while time.perf_counter() < warm_until:
+            chol.cholesky_solve(Rb, eye)
+            torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        # the host queues the launches behind a device sleep, so that they
+        # run back to back and the wrapper's host time is not counted
+        torch.cuda._sleep(40_000_000)
+        start.record()
+        for _ in range(100):
+            chol.cholesky_solve(Rb, eye)
+        end.record()
+        torch.cuda.synchronize()
+        sha = hashlib.sha256(out.cpu().numpy().tobytes())
+        runs[f"({B}, 64, 64)"] = dict(ms=start.elapsed_time(end) / 100,
+                                      x_sha256=sha.hexdigest()[:16])
+elif sys.argv[2] == "stream":
     from qpalm_tpu_torch import sweep
     s = sweep.S32
     data = stack_problems(sweep.row_problems("randomQP", 352), np.float32,
@@ -81,22 +116,24 @@ else:
     runs["boxqp 64"] = timed(*F._prepare(data, s, gamma_init=gi,
                                          gamma_max=gm), 400, s)
 print(json.dumps({"dir": sys.argv[1], "device": torch.cuda.get_device_name(0),
-                  "tier": sys.argv[2], "runs": runs}))
+                  "mode": sys.argv[2], "runs": runs}))
 """
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tier", choices=("stream", "smem"), default="stream")
+    ap.add_argument("--kernel", choices=("k1", "chol_solve"), default="k1")
     ap.add_argument("dirs", nargs="*")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
+    mode = args.tier if args.kernel == "k1" else args.kernel
     for d in args.dirs or [str(ROOT)]:
         proc = subprocess.run([sys.executable, "-c", CHILD,
-                               str(Path(d).resolve()), args.tier],
+                               str(Path(d).resolve()), mode],
                               capture_output=True, text=True)
         if proc.returncode:
             raise SystemExit(f"{d}: exit {proc.returncode}\n{proc.stderr}")
