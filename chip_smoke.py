@@ -64,16 +64,38 @@ Phases, each asserting, any failure exiting non-zero:
      rounds of 512 a rep, 5 reps, the rescue in its thread, the referee on
      every rep, the C baseline), its JSON line printed: every rep certified
      on every lane, 0 referee disagreements, a baseline divisor, and K1, K2a
-     and K2b launched (counters zeroed before and read after).
+     and K2b launched (counters zeroed before and read after);
+ 14. the general loop (solver/core.py) on the card: K2's f64 instantiation
+     at (512, 64, 64), its global-memory plan at f64 (128, 224, 224), f64
+     and f32 (64, 480, 480), and the f32 one-vector panel solve at
+     (512, 64), factor and one-vector solve, bit for bit against the twins,
+     timed beside torch.linalg.cholesky and torch.cholesky_solve (each
+     kernels-line row at the shape of the run whose launches it counts);
+     the headline through the general loop at bench.py's f32 settings
+     (use_fused="never", statuses and counts against phase 4's K1), at the
+     default Settings() (f64, max_refine=3, eps 1e-4: every lane solved, x
+     within 1e-3 of phase 5's certified solutions, and its first 32 lanes
+     equal in status and count to the port's general loop on the CPU,
+     |dx| <= 1e-8 and |dy| <= 1e-7 scaled) and at eps 1e-6 (x within
+     1e-4); randomQP n=480 (past K1, the global plan) at the sweep's f32
+     settings and at the defaults, each polished and retried as a sweep
+     row and refereed (>= 99% certified, 0 referee disagreements);
+     solve_batch_escalate at the headline with max_iter 20 (every
+     re-solved lane solved, the f64 pass on the card); a time limit that
+     cuts the solve (TIME_LIMIT_REACHED on the unfinished lanes, the
+     finished ones unchanged); and the sweep's randomQP n=320 and 352 rows
+     (B=64) through the general loop and through streaming K1, timed.  The
+     K2 counters are zeroed before each solve and read after.
 
 It prints a JSON line of the kernels' numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}} only when every phase passed.
 There is no CPU fallback: without a CUDA device it exits non-zero.
 
 `bound_ms` in the kernels line is the least time the card could take for
-the work of the measured call: the larger of its float32 operations over
-67 TFLOP/s and its bytes (each input read once, each output written once)
-over 3.35 TB/s, the H100 SXM's published peaks.
+the work of the measured call: the larger of its operations over the peak
+rate of their type (67 TFLOP/s float32, 34 TFLOP/s float64, both outside
+the tensor cores) and its bytes (each input read once, each output written
+once) over 3.35 TB/s, the H100 SXM's published peaks.
 """
 
 import json
@@ -96,13 +118,54 @@ STREAM_T = 30  # iterations of the full-width streaming comparison
 # (of B = 512), the fewest two right implementations share there
 STREAM_COUNT_BAR = 474
 F32_PEAK = 67e12  # FLOP/s, float32 outside the tensor cores
+F64_PEAK = 34e12  # FLOP/s, float64 outside the tensor cores
 HBM_RATE = 3.35e12  # bytes/s
+# phase 14: iteration counts the general loop must share with K1 at the
+# headline shape and settings (of B = 512).  On the CPU
+# (tools/tier_drift.py 512) the reference's own general loop and fused
+# kernel share 478/512, the port's general loop and K1's twin 478, and
+# the fewest that two right implementations share there is 474 (the port's
+# twin and the reference's kernel); the bar leaves 1% of the lanes (5) for
+# the card's other summation orders (cuBLAS, CUDA reductions)
+GENERAL_COUNT_BAR = 469
+REF_GENERAL_COUNTS = 478
+TL_EPS = 1e-5  # phase 14's time-limited solve: some lanes floor at f32
+# phase 14: how far the general loop's f64 x may sit from phase 5's
+# certified solutions.  The defaults stop at residuals of 1e-4 (eps_abs =
+# eps_rel = 1e-4): on the CPU the reference's own default solve of the
+# 512 headline problems sits 5.8e-4 from their 1e-10 solutions, and the
+# port's as far (python tools/default_gap.py), so the defaults are held at
+# 1e-3 and an eps 1e-6 solve at 1e-4
+DEFAULT_X_BAR, TIGHT_X_BAR = 1e-3, 1e-4
+# phase 14's K2 comparisons: (label, B, n, dtype, the plans of the factor
+# and of the one-vector solve, and the kernels-line names of the factor and
+# of the solve at this shape).  Each kernels-line row is timed at the shape
+# of the phase-14 run whose launches it counts: the headline (512, 64) at
+# Settings() for f64 in shared memory and at f32 for the one-vector panel
+# solve, randomQP n=480 (64 problems) at f32 and f64 for the global plan.
+# f64 (128, 224) is held to the twins without a row of its own.
+K2_SHAPES = (
+    ("f64 (512, 64)", 512, 64, "float64", ("smem", "entry"),
+     ("chol_f64", "chol_solve_f64")),
+    ("f64 (128, 224)", 128, 224, "float64", ("global", "global"),
+     (None, None)),
+    ("f64 (64, 480)", 64, 480, "float64", ("global", "global"),
+     ("chol_global_f64", "chol_solve_global_f64")),
+    ("f32 (64, 480)", 64, 480, "float32", ("global", "global"),
+     ("chol_global", "chol_solve_global")),
+    ("f32 (512, 64)", 512, 64, "float32", ("smem", "panel"),
+     (None, "chol_solve_vec")))
+# phase 14: lanes of the headline at Settings() held on the card to the
+# port's own general loop on the CPU, at the CPU tests' f64 bar
+CPU_LANES = 32
+WIDE_N, WIDE_B = 480, 64  # phase 14's randomQP row past K1
+STREAM_ROWS = (320, 352)  # phase 14's STREAM_N_MAX rows, at WIDE_B
 
 
-def bound(flops, nbytes):
-    """bound_ms and bound_by of work of `flops` f32 operations that must
-    move `nbytes` bytes."""
-    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+def bound(flops, nbytes, peak=F32_PEAK):
+    """bound_ms and bound_by of work of `flops` operations at `peak`
+    FLOP/s that must move `nbytes` bytes."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -697,6 +760,280 @@ def phase_bench(counters):
         require(count > 0, f"bench: kernel {name} was not launched")
 
 
+def k2_against_twins(chol, M, b, label):
+    """K2a on M (B, n, n) and K2b on one vector a matrix b (B, n), held bit
+    for bit against the twins and timed beside the library calls that
+    compute the same functions.  Returns the numbers of the factor and of
+    the solve for the kernels line."""
+    import torch
+
+    nb, n, _ = M.shape
+    R = chol.cholesky_upper(M)
+    x = chol.cholesky_solve(R, b)
+    Rp = chol.cholesky_upper_plain(M)
+    xp = chol.cholesky_solve_plain(R, b)
+    torch.cuda.synchronize()
+    require(torch.equal(R, Rp), f"{label}: factor vs plain, "
+            f"{int((R != Rp).sum())} entries differ")
+    require(torch.equal(x, xp), f"{label}: solve vs plain, "
+            f"{int((x != xp).sum())} entries differ")
+    M64, x64 = M.double(), x.double()
+    res = ((M64 @ x64[..., None])[..., 0] - b.double()).abs().max().item() \
+        / M64.abs().max().item()
+    require(res < (1e-12 if M.dtype == torch.float64 else 1e-3),
+            f"{label}: solve residual {res:.3e}")
+    es = M.element_size()
+    peak = F64_PEAK if M.dtype == torch.float64 else F32_PEAK
+    b3 = b[..., None]
+    fac = dict(max_abs_err=0.0, ms=cuda_ms(lambda: chol.cholesky_upper(M), 5),
+               plain_ms=cuda_ms(lambda: chol.cholesky_upper_plain(M), 1),
+               library_ms=cuda_ms(lambda: torch.linalg.cholesky(
+                   M, upper=True), 5),
+               **bound(nb * n ** 3 / 3, 2 * es * nb * n * n, peak))
+    sol = dict(max_abs_err=0.0,
+               ms=cuda_ms(lambda: chol.cholesky_solve(R, b), 5),
+               plain_ms=cuda_ms(lambda: chol.cholesky_solve_plain(R, b), 1),
+               library_ms=cuda_ms(lambda: torch.cholesky_solve(
+                   b3, R, upper=True), 5),
+               **bound(2 * nb * n * n, es * nb * (n * n + 2 * n), peak))
+    say(f"[general K2 {label}] factor and solve bit-identical to the twins, "
+        f"solve residual {res:.1e}; factor {fac['ms']:.4f} ms (bound "
+        f"{fac['bound_ms']:.4f}, plain {fac['plain_ms']:.2f}, "
+        f"torch.linalg.cholesky {fac['library_ms']:.4f}); solve "
+        f"{sol['ms']:.4f} ms (bound {sol['bound_ms']:.4f}, plain "
+        f"{sol['plain_ms']:.2f}, torch.cholesky_solve "
+        f"{sol['library_ms']:.4f})")
+    return fac, sol
+
+
+def general_solve(dev, probs, s, label, **kw):
+    """solve_batch on the card with the K2 counters zeroed before and read
+    after; returns (result, wall seconds, launches by kernel)."""
+    import torch
+
+    from qpalm_tpu_torch.batch import solve_batch
+    from qpalm_tpu_torch.linalg import chol
+
+    torch.cuda.synchronize()
+    chol.KERNEL_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = solve_batch(probs, s, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(chol.KERNEL_LAUNCHES)
+    say(f"[general {label}] wall {wall:.3f} s, mean iterations "
+        f"{res.iterations.float().mean().item():.1f}, solved "
+        f"{int((res.status == 1).sum())}/{len(probs)}; K2 launches "
+        f"{launches}")
+    return res, wall, launches
+
+
+def general_vs_cpu(probs, res, s):
+    """The card's general-loop result `res` on its first len(probs) lanes,
+    held to the port's general loop on the CPU at settings `s` (f64): equal
+    statuses and iteration counts, |dx| <= 1e-8 and |dy| <= 1e-7 scaled by
+    max(1, max|x|) a lane, the bar of tests/test_torch_core.py."""
+    import numpy as np
+
+    from qpalm_tpu_torch.batch import solve_batch
+
+    t0 = time.perf_counter()
+    cpu = solve_batch(probs, s, device="cpu")
+    nl = len(probs)
+    got = [a.cpu().numpy()[:nl] for a in (res.x, res.y, res.status,
+                                          res.iterations)]
+    want = [a.numpy() for a in (cpu.x, cpu.y, cpu.status, cpu.iterations)]
+    scale = np.maximum(1.0, np.abs(want[0]).max(1))
+    dx = float((np.abs(got[0] - want[0]).max(1) / scale).max())
+    dy = float((np.abs(got[1] - want[1]).max(1) / scale).max())
+    st_eq = int((got[2] == want[2]).sum())
+    it_eq = int((got[3] == want[3]).sum())
+    say(f"[general vs CPU] {nl} lanes: statuses equal {st_eq}, iteration "
+        f"counts equal {it_eq}, scaled max|dx| {dx:.2e}, max|dy| {dy:.2e} "
+        f"(CPU {time.perf_counter() - t0:.1f} s)")
+    require(st_eq == nl and it_eq == nl and dx <= 1e-8 and dy <= 1e-7,
+            f"general loop on the card vs the CPU: statuses {st_eq}, counts "
+            f"{it_eq} of {nl}, dx {dx:.3e}, dy {dy:.3e}")
+
+
+def polish_and_referee(probs, res):
+    """A solve_batch result polished at EPS_TARGET as a sweep row is (one
+    polish, then sweep.retry_rejected), and rechecked by the f64 referee;
+    returns (certified, certified lanes the referee agrees on)."""
+    import numpy as np
+
+    from qpalm_tpu_torch import referee, sweep
+    from qpalm_tpu_torch.batch import stack_problems
+    from qpalm_tpu_torch.polish import polish_batch_np
+    from qpalm_tpu_torch.types import QPData
+
+    d64 = QPData(*(a.numpy() for a in stack_problems(probs, np.float64)))
+    x0, y0 = res.x.cpu().numpy(), res.y.cpu().numpy()
+    pol = polish_batch_np(d64, x0, y0, eps_abs=EPS_TARGET, eps_rel=EPS_TARGET,
+                          rounds=1, refine_steps=0)
+    ok, x, y = pol.ok.copy(), pol.x.copy(), pol.y.copy()
+    sweep.retry_rejected(d64, x0, y0, ok, x, y)
+    viol = referee.check(*d64, x, y, EPS_TARGET, EPS_TARGET)[0]
+    return int(ok.sum()), int((ok & (viol <= 1.0)).sum())
+
+
+def phase_general(dev, probs, s32, k_np, x_cert, ok_cert):
+    """Phase 14: the general loop on the card.  Returns (numbers, launches)
+    of the kernels line's K2 plans."""
+    import numpy as np
+    import torch
+
+    from qpalm_tpu_torch import constants as C
+    from qpalm_tpu_torch import sweep
+    from qpalm_tpu_torch.batch import solve_batch_escalate
+    from qpalm_tpu_torch.linalg import chol
+    from qpalm_tpu_torch.types import Settings
+
+    numbers, launches = {}, {}
+    rng = np.random.default_rng(14)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, nb, n, dt, want, rows in K2_SHAPES:
+        G = rng.standard_normal((nb, n, n)).astype(dt)
+        M = torch.from_numpy(G @ np.transpose(G, (0, 2, 1))
+                             + n * np.eye(n, dtype=G.dtype)).to(dev)
+        b = torch.from_numpy(rng.standard_normal((nb, n)).astype(dt)).to(dev)
+        plans = (chol.factor_plan(n, M.dtype),
+                 chol.solve_plan(nb, n, 1, M.dtype, sms)[0])
+        require(plans == want, f"K2 {label}: plans {plans}, not {want}")
+        for row, num in zip(rows, k2_against_twins(chol, M, b, label)):
+            if row is not None:
+                numbers[row] = num
+
+    # (a) the headline at bench.py's f32 settings, general loop vs K1
+    res, _, la = general_solve(dev, probs, s32.replace(use_fused="never"),
+                               "headline f32, use_fused='never'")
+    st_eq = int((res.status.cpu().numpy() == k_np[2]).sum())
+    it_eq = int((res.iterations.cpu().numpy() == k_np[3]).sum())
+    say(f"[general headline f32] vs K1 (phase 4): statuses equal "
+        f"{st_eq}/{B}, iteration counts equal {it_eq}/{B} (the reference's "
+        f"own general loop and fused kernel share {REF_GENERAL_COUNTS}/512 "
+        "counts here on the CPU, tools/tier_drift.py; its v5e smoke found "
+        "them iteration-identical at n=16, benchmarks/SMOKE_TPU_r03.txt)")
+    require(st_eq >= B - 5, f"general f32: statuses equal {st_eq}/{B}")
+    require(it_eq >= GENERAL_COUNT_BAR,
+            f"general f32: iteration counts equal {it_eq}/{B}")
+    require(la.get("chol", 0) > 0 and la.get("chol_solve", 0) > 0,
+            f"general f32: K2 launches {la}")
+    launches["chol_solve_vec"] = la["chol_solve"]
+    # (b) the defaults: f64, max_refine 3, eps 1e-4; then eps 1e-6.  x is
+    # held to phase 5's certified (1e-6) solutions at DEFAULT_X_BAR and
+    # TIGHT_X_BAR
+    for label, s, bar in (("Settings()", Settings(), DEFAULT_X_BAR),
+                          ("Settings(eps 1e-6)",
+                           Settings(eps_abs=1e-6, eps_rel=1e-6),
+                           TIGHT_X_BAR)):
+        res, _, lb = general_solve(dev, probs, s, f"headline {label}")
+        require(bool((res.status == C.QPALM_SOLVED).all()),
+                f"{label}: solved {int((res.status == 1).sum())}/{B}")
+        dx = float(np.abs(res.x.cpu().numpy() - x_cert)[ok_cert].max())
+        say(f"[general headline {label}] max|x - certified x| {dx:.2e} on "
+            f"{int(ok_cert.sum())} certified lanes (bar {bar:.0e})")
+        require(dx <= bar, f"{label}: max|x - certified| {dx:.3e}")
+        if label == "Settings()":
+            launches["chol_f64"] = lb.get("chol_f64", 0)
+            launches["chol_solve_f64"] = lb.get("chol_solve_f64", 0)
+            general_vs_cpu(probs[:CPU_LANES], res, Settings())
+
+    # (c) randomQP n=480, past K1: the global plan, polished and refereed,
+    # at the sweep's f32 settings (through its row) and at Settings()
+    torch.cuda.synchronize()
+    chol.KERNEL_LAUNCHES.clear()
+    row = sweep.run_row("randomQP", WIDE_N, device=dev, batch=WIDE_B)
+    torch.cuda.synchronize()
+    lc = dict(chol.KERNEL_LAUNCHES)
+    label = f"randomQP n={WIDE_N} B={WIDE_B} float32"
+    say(f"[general {label}] certified {row['certified']}/{WIDE_B} (polish "
+        f"{row['polish1_ok']}, retried {row['retried']}, finisher "
+        f"{row['finished']}), referee disagreements "
+        f"{row['referee_disagreements']}, solved {row['solved_f32']}, "
+        f"mean iterations {row['mean_iterations']:.1f}; wall "
+        f"{row['wall_s']:.3f} s = solve {row['solve_s']:.3f} + polish "
+        f"{row['polish_s']:.3f} + retry/finisher {row['retry_finish_s']:.3f}"
+        f"; K2 launches {lc}")
+    require(row["certified"] >= 0.99 * WIDE_B,
+            f"{label}: certified {row['certified']}/{WIDE_B}")
+    require(row["referee_disagreements"] == 0,
+            f"{label}: {row['referee_disagreements']} referee disagreements")
+    launches["chol_global"] = lc.get("chol_global", 0)
+    launches["chol_solve_global"] = lc.get("chol_solve_global", 0)
+    wide = sweep.row_problems("randomQP", WIDE_N, batch=WIDE_B)
+    res, _, lc = general_solve(dev, wide, Settings(),
+                               f"randomQP n={WIDE_N} Settings()")
+    cert, agree = polish_and_referee(wide, res)
+    say(f"[general randomQP n={WIDE_N} Settings()] polished and retried as a "
+        f"sweep row at {EPS_TARGET:.0e}: certified {cert}/{WIDE_B}, the "
+        f"referee agrees on {agree}")
+    require(bool((res.status == C.QPALM_SOLVED).all()),
+            f"randomQP n={WIDE_N} Settings(): solved "
+            f"{int((res.status == 1).sum())}/{WIDE_B}")
+    require(cert >= 0.99 * WIDE_B and agree == cert,
+            f"randomQP n={WIDE_N} Settings(): certified {cert}, referee "
+            f"agrees on {agree}")
+    launches["chol_global_f64"] = lc.get("chol_global_f64", 0)
+    launches["chol_solve_global_f64"] = lc.get("chol_solve_global_f64", 0)
+
+    # (d) escalation: an f32 pass of 20 iterations, f64 on the card
+    s20 = s32.replace(max_iter=20)
+    first, _, _ = general_solve(dev, probs, s20, "escalate, first pass")
+    bad = (first.status != C.QPALM_SOLVED).cpu().numpy()
+    torch.cuda.synchronize()
+    chol.KERNEL_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = solve_batch_escalate(probs, s20, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ld = dict(chol.KERNEL_LAUNCHES)
+    re_ok = int((res.status.cpu().numpy()[bad] == C.QPALM_SOLVED).sum())
+    say(f"[general escalate] {int(bad.sum())} lanes re-solved in f64 on "
+        f"{res.x.device}, solved {re_ok}; wall {wall:.3f} s; K2 launches "
+        f"{ld}")
+    require(bad.any(), "escalate: the f32 pass left no lane to re-solve")
+    require(re_ok == int(bad.sum()), f"escalate: {re_ok}/{int(bad.sum())} "
+            "re-solved lanes solved")
+    require(ld.get("chol_f64", 0) > 0, f"escalate: K2 launches {ld}")
+
+    # (e) a time limit that cuts the solve after its first 200 iterations
+    s_t = s32.replace(eps_abs=TL_EPS, eps_rel=TL_EPS, max_iter=1000,
+                      time_limit=1e-9)
+    cut, _, _ = general_solve(dev, probs, s_t, "time limit")
+    whole, _, _ = general_solve(
+        dev, probs, s_t.replace(time_limit=C.QPALM_INFTY, max_iter=200,
+                                use_fused="never"), "200 iterations")
+    ws, cs = whole.status.cpu().numpy(), cut.status.cpu().numpy()
+    fin = ws != C.QPALM_MAX_ITER_REACHED
+    require(fin.any() and (~fin).any(),
+            f"time limit: {int(fin.sum())} lanes finished within 200")
+    require(np.all(cs[~fin] == C.QPALM_TIME_LIMIT_REACHED),
+            "time limit: unfinished lanes not TIME_LIMIT_REACHED")
+    require(np.array_equal(cs[fin], ws[fin]), "time limit: statuses differ")
+    for name in ("x", "y", "iterations"):
+        require(torch.equal(getattr(cut, name), getattr(whole, name)),
+                f"time limit: {name} differs from 200 iterations")
+    say(f"[general time limit] {int((~fin).sum())} lanes cut at 200 "
+        f"iterations (TIME_LIMIT_REACHED), {int(fin.sum())} finished "
+        "before, x, y and counts identical to a 200-iteration solve")
+
+    # (f) STREAM_N_MAX: the general loop against streaming K1
+    for n in STREAM_ROWS:
+        rows = sweep.row_problems("randomQP", n, batch=WIDE_B)
+        k1, t_k1, _ = general_solve(dev, rows, sweep.S32, f"K1 n={n}")
+        gl, t_gl, _ = general_solve(dev, rows,
+                                    sweep.S32.replace(use_fused="never"),
+                                    f"general n={n}")
+        st_eq = int((k1.status == gl.status).sum())
+        say(f"[general STREAM_N_MAX n={n} B={WIDE_B}] streaming K1 "
+            f"{t_k1:.3f} s, general loop {t_gl:.3f} s ({t_gl / t_k1:.2f}x); "
+            f"statuses equal {st_eq}/{WIDE_B}, solved "
+            f"{int((k1.status == 1).sum())} and "
+            f"{int((gl.status == 1).sum())}")
+    return numbers, launches
+
+
 def main():
     import torch
 
@@ -906,6 +1243,8 @@ def main():
         res = bench.rescue_round(QPData(*(a[bad] for a in h64)))
         ok[bad], x_h[bad], y_h[bad] = res.ok, res.x, res.y
         t3 = time.perf_counter()
+        if k == 0:  # phase 14 holds the general loop's x to these
+            x_cert, ok_cert = x_h.copy(), ok.copy()
         uncertified += [(k, int(i)) for i in bad[~res.ok]]
         ref_ok = referee.check(*h64, x_h, y_h, EPS_TARGET, EPS_TARGET)[0] \
             <= 1.0
@@ -954,9 +1293,17 @@ def main():
     numbers.update(probe_numbers)
     t7 = time.perf_counter()
     phase_bench(counters)
+    t8 = time.perf_counter()
     say(f"[time] phase 9 {t4 - t3:.1f} s, phase 10 {t5 - t4:.1f} s, phase "
         f"11 {t6 - t5:.1f} s, phase 12 {t7 - t6:.1f} s, phase 13 "
-        f"{time.perf_counter() - t7:.1f} s")
+        f"{t8 - t7:.1f} s")
+
+    # ---- 14. the general loop ----
+    general_numbers, general_launches = phase_general(
+        dev, probs, s32, k_np, x_cert, ok_cert)
+    numbers.update(general_numbers)
+    launches.update(general_launches)
+    say(f"[time] phase 14 {time.perf_counter() - t8:.1f} s")
 
     csrc = "qpalm_tpu_torch/csrc/"
     table = [
@@ -972,6 +1319,12 @@ def main():
          "qpalm_tpu/linalg/pallas_chol.py:98"),
         ("chol_solve", "cholesky_solve", csrc + "chol.cu",
          "qpalm_tpu/linalg/pallas_chol.py:123"),
+        ("chol_solve_vec", "chol_solve_vec", csrc + "chol.cu",
+         "qpalm_tpu/linalg/pallas_chol.py:123"),
+        *((f"chol{part}_{plan}", f"chol{part}_{plan}", csrc + "chol.cu",
+           f"qpalm_tpu/linalg/pallas_chol.py:{98 if not part else 123}")
+          for plan in ("f64", "global", "global_f64")
+          for part in ("", "_solve")),
         ("probe_scratch", "probe_scratch", csrc + "probe_stream.cu",
          "scripts/probe_mosaic_scratch.py:83"),
         ("probe_assembly", "probe_assembly", csrc + "probe_stream.cu",

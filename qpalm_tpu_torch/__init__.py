@@ -3,7 +3,7 @@ H100.
 
 The port mirrors qpalm_tpu's module paths and names, so each module has a
 counterpart in the JAX package that it is held against in the tests.  It
-imports torch and numpy, never jax and never qpalm_tpu.  Four paths are
+imports torch and numpy, never jax and never qpalm_tpu.  Five paths are
 ported so far.  The certified batched pipeline of bench.py:
 
     batch.stack_problems -> scaling.scale_data -> solver.fused (kernel K1)
@@ -26,6 +26,16 @@ termination, warm starts and host chunking:
     -> batch._fused_eligible -> solver.fused.solve_batch_fused (kernel K1)
     -> batch.BatchResult
 
+the general P-ALM loop behind it, for every batch K1 does not take (the
+default f64 Settings(), refinement, f64 residuals, a time limit,
+use_fused="never", n_pad past 352), and the f64 escalation:
+
+    batch.solve_batch / solve_batch_escalate -> solver.core.full_solve
+    (scaling.scale_data, core.init_state, core.solve_from_state: the
+    Schur matrix by torch.bmm, kernel K2 for its factor and solves, in
+    shared or global memory, f32 or f64; solver.linesearch)
+    -> batch.BatchResult
+
 and the workloads sweep of scripts/bench_workloads.py, whose larger rows
 run K1's streaming tier:
 
@@ -37,7 +47,8 @@ Every Pallas kernel of the repository is a CUDA C++ kernel here (csrc/),
 built by nvcc at first use (_build.py); probe.py holds the streaming
 tier's memory-plan probes.  A CPU tensor runs each kernel's plain PyTorch
 twin instead; a CUDA tensor runs the kernel or raises.  What is not ported
-raises NotImplementedError naming its ROADMAP.md item.
+(the KKT, CG and STAGE factorization methods) raises NotImplementedError
+naming its ROADMAP.md item.
 
 The host-side modules of the JAX package (its f64 polish, finisher,
 generators and C baseline binding) cannot be imported without JAX

@@ -6,16 +6,21 @@ padding of qpalm_tpu/api.py:30-65).
       -> [nonconvex] solver.nonconvex.batch_gamma_pins   LOBPCG on scaled Q
       -> _fused_eligible                 dtype, settings, K1's memory plan
       -> solver.fused.solve_batch_fused  kernel K1 (its plain twin on a CPU)
+         or solver.core.full_solve       the general loop (kernel K2 inside),
+                                         host-chunked under a time limit
       -> BatchResult                     objective on the unscaled data
 
-The padding runs in numpy exactly as in the reference.  Every batch goes to
-the fused solve: the general solver loop of qpalm_tpu/solver/core.py is not
-ported, so a configuration the kernel does not take raises
-NotImplementedError naming its ROADMAP.md item, and nothing falls back.
+The padding runs in numpy exactly as in the reference.  A batch goes to
+K1 where the reference's routing rule sends it to its fused kernel
+(qpalm_tpu/batch.py:141-172: float32, SCHUR, no time limit, refinement or
+f64 residuals, and a shape with a fused memory plan); every other batch
+runs the general loop, as the reference's does.  `solve_batch_escalate`
+re-solves the lanes that did not solve in float64 on the same device.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -23,6 +28,7 @@ import torch
 
 from . import constants as C
 from .linalg.chol import SMEM_LIMIT
+from .solver import core
 from .solver.fused import (STREAM_N_MAX, fused_smem_bytes, pick_tier,
                            solve_batch_fused)
 from .solver.nonconvex import batch_gamma_pins
@@ -137,21 +143,17 @@ class BatchResult(NamedTuple):
         return np.histogram(self.iterations.cpu().numpy(), bins=bins)
 
 
-def _not_fused(settings: Settings, n_pad: int, m_pad: int,
-               device) -> Optional[str]:
-    """Why kernel K1 cannot take this batch, naming the ROADMAP.md item
-    that would; None when it can.  The rules for dtype, factorization, time
-    limit, refinement and f64 residuals are the reference's
-    (qpalm_tpu/batch.py:152-163); the shape rule is K1's memory plan on the
-    card (`fused.pick_tier`: on chip, or streaming up to n_pad 352), applied
-    to the plain twin as well so that both devices take the same
-    batches."""
-    general = "the general solver loop is not ported yet (ROADMAP.md, " \
-        "section 1 item 3)"
+def _not_fused(settings: Settings, n_pad: int,
+               m_pad: int) -> Optional[str]:
+    """Why kernel K1 does not take this batch, None when it does.  The
+    rules for dtype, factorization, time limit, refinement and f64
+    residuals are the reference's (qpalm_tpu/batch.py:152-163); the shape
+    rule is K1's memory plan on the card (`fused.pick_tier`: on chip, or
+    streaming up to n_pad 352), applied to the plain twin as well, so that
+    a batch takes the same route on either device.  Such a batch runs the
+    general loop (solver/core.py)."""
     if settings.use_fused == "never":
-        return f"use_fused='never': {general}"
-    if torch.device(device).type not in ("cpu", "cuda"):
-        return f"device {device}: the port runs on CPU and CUDA tensors only"
+        return "use_fused='never'"
     rules = (
         (settings.dtype == "float32", f"dtype {settings.dtype!r}"),
         (settings.factorization_method in (
@@ -163,24 +165,24 @@ def _not_fused(settings: Settings, n_pad: int, m_pad: int,
     )
     for ok, what in rules:
         if not ok:
-            return f"{what} needs {general}"
+            return what
     if n_pad % 4 or pick_tier(n_pad, m_pad) is None:
         return (f"n_pad={n_pad}, m_pad={m_pad} has no fused memory plan "
                 f"(n_pad a multiple of 4 and at most {STREAM_N_MAX}, the "
                 f"streaming tier's {fused_smem_bytes(n_pad, m_pad, True)} "
-                f"bytes of shared memory at most {SMEM_LIMIT}): {general}")
+                f"bytes of shared memory at most {SMEM_LIMIT})")
     return None
 
 
-def _fused_eligible(settings: Settings, n_pad: int, m_pad: int,
-                    device) -> bool:
+def _fused_eligible(settings: Settings, n_pad: int, m_pad: int) -> bool:
     """Route a batch through kernel K1 (its plain twin for CPU tensors)?
     `Settings.use_fused` "never" refuses, "always" raises ValueError on a
     batch the kernel cannot take, "auto" decides."""
-    why = _not_fused(settings, n_pad, m_pad, device)
+    why = _not_fused(settings, n_pad, m_pad)
     if settings.use_fused == "always" and why is not None:
         raise ValueError("use_fused='always' but the configuration is not "
-                         f"fused-kernel eligible: {why}")
+                         f"fused-kernel eligible: {why} (the general loop, "
+                         "solver/core.py, runs such batches)")
     return why is None
 
 
@@ -201,26 +203,29 @@ def solve_batch(
     **settings_kw,
 ) -> BatchResult:
     """Solve a batch of QPs given as (Q, A, q, bmin, bmax[, c]) tuples on
-    `device` ("cuda": kernel K1; "cpu": its plain twin).
+    `device` ("cuda": the CUDA kernels; "cpu": their plain twins): through
+    kernel K1 where `_fused_eligible` says so, else through the general
+    loop (solver/core.py, kernel K2 inside), host-chunked under a
+    `time_limit`.
 
     All problems are padded to one shared shape; warm starts (`x0`, `y0`)
     are all-or-none.  For `Settings(nonconvex=True)` each problem's minimum
     eigenvalue is estimated with a batched LOBPCG and gamma is pinned per
     problem (reference: nonconvex.c:171-183); problems that turn out convex
-    keep the default proximal schedule.  `chunk` > 0 runs the kernel in
-    launches of that many iterations with a host early exit between them.
+    keep the default proximal schedule.  `chunk` > 0 runs K1 in launches
+    of that many iterations with a host early exit between them.
     """
     if settings is None:
         settings = Settings(**settings_kw)
     elif settings_kw:
         settings = settings.replace(**settings_kw)
+    if torch.device(device).type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"device {device}: the port runs on CPU "
+                                  "and CUDA tensors only")
     dtype = np.dtype(settings.dtype)
     data = stack_problems(problems, dtype, pad_multiple, device=device)
     B, n_pad = data.q.shape
     m_pad = data.bmin.shape[1]
-    if not _fused_eligible(settings, n_pad, m_pad, data.q.device):
-        raise NotImplementedError(
-            _not_fused(settings, n_pad, m_pad, data.q.device))
 
     x_ws = y_ws = None
     if x0 is not None or y0 is not None:
@@ -238,13 +243,57 @@ def solve_batch(
     if settings.nonconvex:
         gamma_init, gamma_max = batch_gamma_pins(data, settings)
         settings = settings.replace(proximal=True)
+    settings = settings.replace(verbose=False)
 
-    x, y, status, iters, prn, dan, _, _ = solve_batch_fused(
-        data, settings.replace(verbose=False), x_ws=x_ws, y_ws=y_ws,
-        chunk=chunk, gamma_init=gamma_init, gamma_max=gamma_max)
-    return BatchResult(x=x, y=y, status=status, iterations=iters,
-                       objective=_objective(data, x), pri_res_norm=prn,
-                       dua_res_norm=dan)
+    if _fused_eligible(settings, n_pad, m_pad):
+        x, y, status, iters, prn, dan, _, _ = solve_batch_fused(
+            data, settings, x_ws=x_ws, y_ws=y_ws, chunk=chunk,
+            gamma_init=gamma_init, gamma_max=gamma_max)
+        return BatchResult(x=x, y=y, status=status, iterations=iters,
+                           objective=_objective(data, x), pri_res_norm=prn,
+                           dua_res_norm=dan)
+
+    if settings.time_limit < C.QPALM_INFTY:
+        if settings.nonconvex:
+            raise NotImplementedError(
+                "time_limit is not supported for nonconvex batch solves "
+                "(the host-chunked enforcement does not carry the "
+                "per-problem gamma pins; qpalm_tpu/batch.py:327-331)")
+        return _solve_batch_time_limited(data, settings, x_ws, y_ws)
+    final, x, y, obj = core.full_solve(data, settings, x_ws, y_ws,
+                                       gamma_init, gamma_max)
+    return _result(final, x, y, obj)
+
+
+def _result(final, x, y, obj) -> BatchResult:
+    return BatchResult(x=x, y=y, status=final.status,
+                       iterations=final.iter, objective=obj,
+                       pri_res_norm=final.pri_res_norm,
+                       dua_res_norm=final.dua_res_norm)
+
+
+def _solve_batch_time_limited(data: QPData, settings: Settings, x_ws=None,
+                              y_ws=None) -> BatchResult:
+    """The general loop in chunks of min(200, max_iter) iterations with the
+    wall clock read between them (qpalm_tpu/batch.py:175-203, reference
+    qpalm.c:680-708); problems unfinished when the limit passes get
+    QPALM_TIME_LIMIT_REACHED."""
+    t0 = time.perf_counter()
+    st, sdata, scal = core.setup(data, settings, x_ws, y_ws)
+    chunk = max(1, min(200, settings.max_iter))
+    limit = chunk
+    while True:
+        st = core.solve_from_state(st, sdata, scal, settings, max_iter=limit)
+        if bool(st.done.all()) or limit >= settings.max_iter:
+            break
+        if time.perf_counter() - t0 > settings.time_limit:
+            st = st._replace(
+                status=torch.where(st.done, st.status, torch.full_like(
+                    st.status, C.QPALM_TIME_LIMIT_REACHED)),
+                done=torch.ones_like(st.done))
+            break
+        limit = min(limit + chunk, settings.max_iter)
+    return _result(st, *core.finalize(st, sdata, scal, settings))
 
 
 class ManyResult(NamedTuple):
@@ -277,10 +326,8 @@ def solve_many(
 ) -> ManyResult:
     """Solve a heterogeneous problem list: bucket by padded shape, run one
     batch per bucket, scatter the results back into input order (numpy).
-    `escalate=True` adds the f32 -> f64 straggler re-solve, which is not
-    ported yet (solve_batch_escalate)."""
-    if escalate:
-        solve_batch_escalate(problems, settings)
+    `escalate=True` adds the f32 -> f64 straggler re-solve
+    (solve_batch_escalate)."""
     if settings is None:
         settings = Settings(**settings_kw)
     elif settings_kw:
@@ -298,8 +345,14 @@ def solve_many(
                   "dua_res_norm")
     }
     for idxs in bucket_indices(sizes, pad_multiple).values():
-        res = solve_batch([problems[i] for i in idxs], settings,
-                          pad_multiple=pad_multiple, device=device)
+        sub = [problems[i] for i in idxs]
+        if escalate:
+            res = solve_batch_escalate(sub, settings,
+                                       pad_multiple=pad_multiple,
+                                       device=device)
+        else:
+            res = solve_batch(sub, settings, pad_multiple=pad_multiple,
+                              device=device)
         xb = res.x.cpu().numpy()
         yb = res.y.cpu().numpy()
         x[idxs, :xb.shape[1]] = xb
@@ -310,10 +363,50 @@ def solve_many(
                       m=np.asarray([s[1] for s in sizes], np.int32), **scal)
 
 
-def solve_batch_escalate(problems, settings=None, *args, **kwargs):
-    """The two-pass batch solve of qpalm_tpu/batch.py:416-467 (an f32 pass,
-    then an f64 re-solve of the lanes that did not solve).  Not ported yet:
-    its second pass runs the general solver loop."""
-    raise NotImplementedError(
-        "solve_batch_escalate is not ported yet: its f64 re-solve runs the "
-        "general solver loop (ROADMAP.md, section 1 items 3 and 7)")
+def solve_batch_escalate(
+    problems: Sequence[tuple],
+    settings: Optional[Settings] = None,
+    fallback_settings: Optional[Settings] = None,
+    fallback_device=None,
+    pad_multiple: int = 8,
+    device="cuda",
+    **settings_kw,
+) -> BatchResult:
+    """Two-pass batch solve (qpalm_tpu/batch.py:416-467): a float32 pass
+    (by default), then a float64 re-solve of every problem that did not
+    reach `solved`, scattered back into one BatchResult of the first pass's
+    dtypes.  The re-solve runs the general loop on `fallback_device`, by
+    default the first pass's device: the H100 runs float64 natively (the
+    reference sent it to the host CPU because its TPU emulates f64)."""
+    if settings is None:
+        settings_kw.setdefault("dtype", "float32")
+        settings = Settings(**settings_kw)
+    elif settings_kw:
+        settings = settings.replace(**settings_kw)
+    res = solve_batch(problems, settings, pad_multiple=pad_multiple,
+                      device=device)
+    bad = torch.nonzero(res.status != C.QPALM_SOLVED).flatten().tolist()
+    if not bad:
+        return res
+    if fallback_settings is None:
+        fallback_settings = settings.replace(
+            dtype="float64", max_iter=max(settings.max_iter, 4000),
+            refine_fp64=False, residuals_fp64=False)
+    if fallback_device is None:
+        fallback_device = res.x.device
+    res2 = solve_batch([problems[i] for i in bad], fallback_settings,
+                       device=fallback_device)
+    idx = torch.tensor(bad, device=res.x.device)
+    merged = {}
+    for field in BatchResult._fields:
+        a = getattr(res, field).clone()
+        b = getattr(res2, field).to(device=a.device, dtype=a.dtype)
+        if a.dim() > 1 and a.shape[1] != b.shape[1]:
+            # the re-solve's bucket may pad differently: align on the
+            # smaller width
+            w = min(a.shape[1], b.shape[1])
+            a[idx, :w] = b[:, :w]
+        else:
+            a[idx] = b
+        merged[field] = a
+    return BatchResult(**merged)

@@ -1,4 +1,4 @@
-// Kernel K2: batched unpivoted Cholesky factor and solve, f32.
+// Kernel K2: batched unpivoted Cholesky factor and solve, f32 and f64.
 //
 // Replaces qpalm_tpu/linalg/pallas_chol.py: `_chol_kernel_loop` (launched
 // by `_chol_pallas`) and `_solve_kernel_loop` (by `_solve_pallas`).  On the
@@ -37,6 +37,16 @@
 // whatever the order of its loads; the blocked loops are short and run
 // 0.0305 and 0.0208 ms there (PERF.md, NVIDIA H100 80GB HBM3, 700 W).
 //
+// The factor and the entry-by-entry solve are templates on the element
+// type: f64 instantiations of the shared-memory plan take n <= 170 (the
+// factor's n x n doubles in 227 KB).  Their dynamic shared memory is
+// declared as floats and cast: declared as bytes, the f32 factor ran 25%
+// slower with the same arithmetic (0.0564 against 0.0453 ms at
+// (512, 64, 64), tools/stream_ab.py --kernel chol, PERF.md).  Past shared memory (f32 n > 241,
+// f64 n > 170) a global-memory plan keeps R in global memory, one block
+// per matrix (chol_global_kernel, chol_solve_global_kernel, below), in
+// the same order of operations.  linalg/chol.py picks the plan.
+//
 // Entry points (plain C, for ctypes) launch on the given stream, allocate
 // nothing, do not synchronise, and return cudaGetLastError().
 
@@ -47,10 +57,11 @@ namespace {
 
 constexpr int CHOL_THREADS = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(CHOL_THREADS)
-chol_kernel(const float* __restrict__ gM, float* __restrict__ gR, int n) {
-  extern __shared__ float sm[];
-  float* M = sm;
+chol_kernel(const T* __restrict__ gM, T* __restrict__ gR, int n) {
+  extern __shared__ __align__(16) float smf[];
+  T* M = reinterpret_cast<T*>(smf);
   const size_t off = (size_t)blockIdx.x * n * n;
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) M[e] = gM[off + e];
   __syncthreads();
@@ -61,13 +72,14 @@ chol_kernel(const float* __restrict__ gM, float* __restrict__ gR, int n) {
 // R'R x = b for one matrix and one block of `cols` right-hand-side columns,
 // the column in shared memory (any n); thread c owns column c.  b and x are
 // (n, k) row-major per matrix.
-__global__ void chol_solve_kernel(const float* __restrict__ gR,
-                                  const float* __restrict__ gb,
-                                  float* __restrict__ gx, int n, int k,
+template <typename T>
+__global__ void chol_solve_kernel(const T* __restrict__ gR,
+                                  const T* __restrict__ gb,
+                                  T* __restrict__ gx, int n, int k,
                                   int cols) {
-  extern __shared__ float sm[];
-  float* R = sm;
-  float* X = sm + n * n;  // X[l * cols + c]
+  extern __shared__ __align__(16) float smf[];
+  T* R = reinterpret_cast<T*>(smf);
+  T* X = R + n * n;  // X[l * cols + c]
   const int c = threadIdx.x;
   const int col = blockIdx.y * cols + c;
   const size_t roff = (size_t)blockIdx.x * n * n;
@@ -79,12 +91,12 @@ __global__ void chol_solve_kernel(const float* __restrict__ gR,
   __syncthreads();
   if (!active) return;
   for (int j = 0; j < n; ++j) {
-    const float yj = X[j * cols + c] / R[j * n + j];
+    const T yj = X[j * cols + c] / R[j * n + j];
     for (int l = j + 1; l < n; ++l) X[l * cols + c] -= yj * R[j * n + l];
     X[j * cols + c] = yj;
   }
   for (int l = n - 1; l >= 0; --l) {
-    const float xl = X[l * cols + c] / R[l * n + l];
+    const T xl = X[l * cols + c] / R[l * n + l];
     X[l * cols + c] = xl;
     for (int r = 0; r < l; ++r) X[r * cols + c] -= R[r * n + l] * xl;
   }
@@ -232,40 +244,159 @@ chol_solve_panel_kernel(const float* __restrict__ gR,
   for (int l = 0; l < n; ++l) gx[boff + (size_t)l * k + col] = xc[l];
 }
 
-}  // namespace
+// The global-memory plan, for n whose matrix does not fit a block's shared
+// memory (f32 n > 241, f64 n > 170); one block per matrix, R in global
+// memory (0.92 MB at n = 480 f32, so mostly in L2).  The factor copies M
+// to R and runs chol_upper_inplace there, each chain unrolled by 8 so
+// that its loads are in flight together: every entry's operations and
+// their order are the shared-memory plan's, and so the twin's.
+constexpr int GLOBAL_THREADS = 512;
 
-extern "C" int qp_chol(const float* M, float* R, int B, int n, void* stream) {
+template <typename T>
+__global__ void __launch_bounds__(GLOBAL_THREADS)
+chol_global_kernel(const T* __restrict__ gM, T* gR, int n) {
+  const size_t off = (size_t)blockIdx.x * n * n;
+  T* R = gR + off;
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) R[e] = gM[off + e];
+  __syncthreads();
+  chol_upper_inplace<8>(R, n);
+}
+
+// R'R x = b for one matrix and one right-hand-side column (blockIdx.y),
+// R in global memory, the column in shared memory as two vectors of n:
+// w, the column being reduced, and y, each step's finished value.  The
+// threads share each step's entries, one barrier a step.  Forward in
+// saxpy form (y_j = w_j / R_jj, then w_l -= y_j R_jl for l > j), backward
+// in column form on y (x_l = y_l / R_ll, then y_r -= R_rl x_l for r < l,
+// x_l into w): the order of linalg/chol.py:cholesky_solve_plain, each
+// product and each difference rounded.
+template <typename T>
+__global__ void __launch_bounds__(GLOBAL_THREADS)
+chol_solve_global_kernel(const T* __restrict__ gR, const T* __restrict__ gb,
+                         T* __restrict__ gx, int n, int k) {
+  extern __shared__ __align__(16) float smf[];
+  T* w = reinterpret_cast<T*>(smf);
+  T* y = w + n;
+  const int tid = threadIdx.x, nt = blockDim.x, c = blockIdx.y;
+  const T* R = gR + (size_t)blockIdx.x * n * n;
+  const size_t boff = (size_t)blockIdx.x * n * k;
+  for (int l = tid; l < n; l += nt) w[l] = gb[boff + (size_t)l * k + c];
+  __syncthreads();
+  for (int j = 0; j < n; ++j) {
+    const T* rj = R + (size_t)j * n;
+    const T yj = w[j] / rj[j];
+    for (int l = j + 1 + tid; l < n; l += nt) w[l] = w[l] - yj * rj[l];
+    if (tid == 0) y[j] = yj;
+    __syncthreads();
+  }
+  for (int l = n - 1; l >= 0; --l) {
+    const T xl = y[l] / R[(size_t)l * n + l];
+    for (int r = tid; r < l; r += nt) y[r] = y[r] - R[(size_t)r * n + l] * xl;
+    if (tid == 0) w[l] = xl;
+    __syncthreads();
+  }
+  for (int l = tid; l < n; l += nt) gx[boff + (size_t)l * k + c] = w[l];
+}
+
+template <typename T>
+int launch_chol(const T* M, T* R, int B, int n, void* stream) {
   if (B == 0 || n == 0) return 0;
-  const int smem = (int)((size_t)n * n * sizeof(float));
+  const int smem = (int)((size_t)n * n * sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(
-      chol_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      chol_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  chol_kernel<<<B, CHOL_THREADS, smem, (cudaStream_t)stream>>>(M, R, n);
+  chol_kernel<T><<<B, CHOL_THREADS, smem, (cudaStream_t)stream>>>(M, R, n);
   return (int)cudaGetLastError();
 }
 
-// `cols` right-hand sides per block; `panel` picks the blocked kernel (n a
-// multiple of PANEL, cols 32 or 64, R 16-byte aligned), else cols <= 64.
-extern "C" int qp_chol_solve(const float* R, const float* b, float* x, int B,
-                             int n, int k, int cols, int panel,
+template <typename T>
+int launch_chol_solve_entry(const T* R, const T* b, T* x, int B, int n,
+                            int k, int cols, cudaStream_t s) {
+  const dim3 grid(B, (k + cols - 1) / cols);
+  const int smem = (int)((size_t)(n * n + n * cols) * sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(
+      chol_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  chol_solve_kernel<T><<<grid, cols, smem, s>>>(R, b, x, n, k, cols);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_global(const T* M, T* R, int B, int n, void* stream) {
+  if (B == 0 || n == 0) return 0;
+  const int threads = n < GLOBAL_THREADS ? (n + 31) / 32 * 32
+                                         : GLOBAL_THREADS;
+  chol_global_kernel<T><<<B, threads, 0, (cudaStream_t)stream>>>(M, R, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_solve_global(const T* R, const T* b, T* x, int B, int n, int k,
+                        void* stream) {
+  if (B == 0 || n == 0 || k == 0) return 0;
+  const int smem = (int)(2 * (size_t)n * sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(
+      chol_solve_global_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = n < 256 ? (n + 31) / 32 * 32 : 256;
+  chol_solve_global_kernel<T><<<dim3(B, k), threads, smem,
+                                (cudaStream_t)stream>>>(R, b, x, n, k);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Every entry point takes the element type as a flag: f64 picks double.
+extern "C" int qp_chol(const void* M, void* R, int B, int n, int f64,
+                       void* stream) {
+  return f64 ? launch_chol((const double*)M, (double*)R, B, n, stream)
+             : launch_chol((const float*)M, (float*)R, B, n, stream);
+}
+
+// the global-memory plan
+extern "C" int qp_chol_global(const void* M, void* R, int B, int n, int f64,
+                              void* stream) {
+  return f64 ? launch_global((const double*)M, (double*)R, B, n, stream)
+             : launch_global((const float*)M, (float*)R, B, n, stream);
+}
+
+extern "C" int qp_chol_solve_global(const void* R, const void* b, void* x,
+                                    int B, int n, int k, int f64,
+                                    void* stream) {
+  return f64 ? launch_solve_global((const double*)R, (const double*)b,
+                                   (double*)x, B, n, k, stream)
+             : launch_solve_global((const float*)R, (const float*)b,
+                                   (float*)x, B, n, k, stream);
+}
+
+// The shared-memory solve, `cols` right-hand sides per block; `panel`
+// picks the blocked kernel (f32, n a multiple of PANEL, cols 32 or 64, R
+// 16-byte aligned), else the entry-by-entry kernel with cols <= 64.
+extern "C" int qp_chol_solve(const void* R, const void* b, void* x, int B,
+                             int n, int k, int cols, int panel, int f64,
                              void* stream) {
   if (B == 0 || n == 0 || k == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid(B, (k + cols - 1) / cols);
+  if (f64) {
+    if (panel) return (int)cudaErrorInvalidValue;
+    return launch_chol_solve_entry((const double*)R, (const double*)b,
+                                   (double*)x, B, n, k, cols, s);
+  }
+  const float *Rf = (const float*)R, *bf = (const float*)b;
+  float* xf = (float*)x;
   if (panel) {
+    const dim3 grid(B, (k + cols - 1) / cols);
     const int smem = (int)(panel_smem_floats(n, cols) * sizeof(float));
     cudaError_t e = cudaFuncSetAttribute(
         chol_solve_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return (int)e;
     const int threads = k < cols ? (k + 31) / 32 * 32 : cols;
-    chol_solve_panel_kernel<<<grid, threads, smem, s>>>(R, b, x, n, k, cols);
+    chol_solve_panel_kernel<<<grid, threads, smem, s>>>(Rf, bf, xf, n, k,
+                                                        cols);
     return (int)cudaGetLastError();
   }
-  const int smem = (int)((size_t)(n * n + n * cols) * sizeof(float));
-  cudaError_t e = cudaFuncSetAttribute(
-      chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  chol_solve_kernel<<<grid, cols, smem, s>>>(R, b, x, n, k, cols);
-  return (int)cudaGetLastError();
+  return launch_chol_solve_entry(Rf, bf, xf, B, n, k, cols, s);
 }

@@ -6,15 +6,22 @@ Replaces the Pallas kernels of qpalm_tpu/linalg/pallas_chol.py:
 twins below follow the Pallas loops in the kernels' order of operations,
 so that kernel and twin agree bit for bit, and are what a CPU tensor runs.
 
-    cholesky_upper(M)      M (B, n, n) SPD f32 -> upper R with R'R = M
+    cholesky_upper(M)      M (B, n, n) SPD -> upper R with R'R = M
     cholesky_solve(R, b)   b (B, n) or (B, n, k) -> x with R'R x = b
 
-Dispatch: a CPU tensor goes to the plain twin; a CUDA tensor goes to the
-kernel, and an input the kernel does not take raises.  Each wrapper counts
-its kernel launches in `.launches`.
+Both take float32 and float64.  Dispatch: a CPU tensor goes to the plain
+twin; a CUDA tensor goes to a kernel, in the memory plan `factor_plan` /
+`solve_plan` pick by n, dtype and SMEM_LIMIT: the matrix in one block's
+shared memory where it fits (f32 n <= 241, f64 n <= 170 for the factor),
+else in global memory, in the same order of operations.  An input that no
+plan takes raises; nothing falls back to a library call or to the twin.
+Each wrapper counts its launches in `.launches`, and `KERNEL_LAUNCHES`
+counts them by kernel (the names of KERNELS).
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -26,11 +33,63 @@ _SOLVE_COLS = 64  # right-hand-side columns per block of the solve kernel
 PANEL = 8  # rows of a panel of the blocked solve kernel (csrc/chol.cu)
 
 
+# launches by kernel: (factor or solve, plan, dtype) -> name
+KERNELS = {
+    ("factor", "smem", torch.float32): "chol",
+    ("factor", "smem", torch.float64): "chol_f64",
+    ("factor", "global", torch.float32): "chol_global",
+    ("factor", "global", torch.float64): "chol_global_f64",
+    ("solve", "smem", torch.float32): "chol_solve",
+    ("solve", "smem", torch.float64): "chol_solve_f64",
+    ("solve", "global", torch.float32): "chol_solve_global",
+    ("solve", "global", torch.float64): "chol_solve_global_f64",
+}
+KERNEL_LAUNCHES: collections.Counter = collections.Counter()
+
+_ESIZE = {torch.float32: 4, torch.float64: 8}
+
+
 def panel_smem_bytes(n: int, cols: int) -> int:
     """Shared memory of the blocked solve kernel (csrc/chol.cu,
     panel_smem_floats): R, its transpose and the columns, rows padded to
     n + 4 floats, and two 8-byte mbarriers."""
     return 4 * (n * n + (n + cols) * (n + 4)) + 16
+
+
+def _esize(dtype, name) -> int:
+    if dtype not in _ESIZE:
+        raise ValueError(f"{name}: no kernel takes {dtype} (float32 and "
+                         "float64 only)")
+    return _ESIZE[dtype]
+
+
+def factor_plan(n: int, dtype) -> str:
+    """The factor's memory plan: "smem" while the n x n matrix fits one
+    block's shared memory, else "global" (which uses none); raises
+    ValueError for a dtype no kernel takes."""
+    es = _esize(dtype, "cholesky_upper")
+    return "smem" if n * n * es <= SMEM_LIMIT else "global"
+
+
+def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
+    """The solve's plan and right-hand-side columns a block, (plan, cols):
+    "panel" (f32, n a multiple of PANEL, 32 or 64 columns: 32 where 64
+    would leave some of the card's `sms` multiprocessors idle), "entry"
+    (R and up to 64 columns in shared memory) or "global" (one column a
+    block); raises ValueError where none takes the input."""
+    es = _esize(dtype, "cholesky_solve")
+    if dtype == torch.float32 and n % PANEL == 0:
+        cols = 64 if B * -(-k // 64) >= sms else 32
+        if panel_smem_bytes(n, cols) <= SMEM_LIMIT:
+            return "panel", cols
+    cols = min(k, _SOLVE_COLS)
+    if (n * n + n * cols) * es <= SMEM_LIMIT:
+        return "entry", cols
+    if 2 * n * es <= SMEM_LIMIT:  # the global plan's two n-vectors
+        return "global", 1
+    raise ValueError(f"cholesky_solve: n={n} {dtype} fits no plan (the "
+                     f"global plan's {2 * n * es} bytes of shared memory "
+                     f"are over {SMEM_LIMIT})")
 
 
 def cholesky_upper_plain(M: torch.Tensor) -> torch.Tensor:
@@ -68,33 +127,39 @@ def cholesky_solve_plain(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y[..., 0] if vec else y
 
 
-def _check_f32_cuda(name, t, ndims):
-    if t.dtype != torch.float32 or t.dim() not in ndims or not t.is_cuda:
-        raise ValueError(f"{name}: need a CUDA float32 tensor of "
+def _check_cuda(name, t, ndims, dtype=None):
+    if (t.dtype not in _ESIZE or t.dim() not in ndims or not t.is_cuda
+            or (dtype is not None and t.dtype != dtype)):
+        want = "float32 or float64" if dtype is None else str(dtype)
+        raise ValueError(f"{name}: need a CUDA {want} tensor of "
                          f"{' or '.join(map(str, ndims))} dimensions, got "
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
 
 
 def cholesky_upper(M: torch.Tensor) -> torch.Tensor:
     """Upper Cholesky factor R (R'R = M) of a batch of SPD matrices."""
     if M.device.type == "cpu":
         return cholesky_upper_plain(M)
-    _check_f32_cuda("cholesky_upper", M, (3,))
+    _check_cuda("cholesky_upper", M, (3,))
     B, n, n2 = M.shape
     if n != n2:
         raise ValueError(f"cholesky_upper: square matrices needed, got "
                          f"{tuple(M.shape)}")
-    smem = n * n * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"cholesky_upper: n={n} needs {smem} bytes of "
-                         f"shared memory, over {SMEM_LIMIT}")
+    plan = factor_plan(n, M.dtype)
+    f64 = M.dtype == torch.float64
     M = M.contiguous()
     R = torch.empty_like(M)
     with torch.cuda.device(M.device):
-        rc = kernels().qp_chol(M.data_ptr(), R.data_ptr(), B, n,
-                               torch.cuda.current_stream().cuda_stream)
+        lib = kernels()
+        fn = lib.qp_chol_global if plan == "global" else lib.qp_chol
+        rc = fn(M.data_ptr(), R.data_ptr(), B, n, int(f64), _stream())
     check_launch("qp_chol", rc)
     cholesky_upper.launches += 1
+    KERNEL_LAUNCHES[KERNELS["factor", plan, M.dtype]] += 1
     return R
 
 
@@ -102,39 +167,37 @@ cholesky_upper.launches = 0
 
 
 def cholesky_solve(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve R'R x = b given the upper factor R; b is (B, n) or (B, n, k)."""
+    """Solve R'R x = b given the upper factor R; b is (B, n) or (B, n, k),
+    of R's dtype."""
     if R.device.type == "cpu":
         return cholesky_solve_plain(R, b)
-    _check_f32_cuda("cholesky_solve", R, (3,))
-    _check_f32_cuda("cholesky_solve", b, (2, 3))
+    _check_cuda("cholesky_solve", R, (3,))
+    _check_cuda("cholesky_solve", b, (2, 3), R.dtype)
     B, n, _ = R.shape
     if b.shape[:2] != (B, n):
         raise ValueError(f"cholesky_solve: b {tuple(b.shape)} does not match "
                          f"R {tuple(R.shape)}")
     k = 1 if b.dim() == 2 else b.shape[2]
+    f64 = R.dtype == torch.float64
+    sms = torch.cuda.get_device_properties(R.device).multi_processor_count
+    plan, cols = solve_plan(B, n, k, R.dtype, sms)
     R = R.contiguous()
     b = b.contiguous()
-    panel = False
-    if n % PANEL == 0:
-        # 32 columns a block where 64 would give fewer blocks than SMs
-        sms = torch.cuda.get_device_properties(R.device).multi_processor_count
-        cols = 64 if B * -(-k // 64) >= sms else 32
-        panel = panel_smem_bytes(n, cols) <= SMEM_LIMIT
-        if panel and R.data_ptr() % 16:  # R is read as float4
-            R = R.clone()
-    if not panel:
-        cols = min(k, _SOLVE_COLS)
-        smem = (n * n + n * cols) * 4
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"cholesky_solve: n={n} needs {smem} bytes of "
-                             f"shared memory, over {SMEM_LIMIT}")
+    if plan == "panel" and R.data_ptr() % 16:  # R is read as float4
+        R = R.clone()
     x = torch.empty_like(b)
     with torch.cuda.device(R.device):
-        rc = kernels().qp_chol_solve(
-            R.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, k, cols,
-            int(panel), torch.cuda.current_stream().cuda_stream)
+        lib = kernels()
+        ptrs = (R.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, k)
+        if plan == "global":
+            rc = lib.qp_chol_solve_global(*ptrs, int(f64), _stream())
+        else:
+            rc = lib.qp_chol_solve(*ptrs, cols, int(plan == "panel"),
+                                   int(f64), _stream())
     check_launch("qp_chol_solve", rc)
     cholesky_solve.launches += 1
+    KERNEL_LAUNCHES[KERNELS["solve", "global" if plan == "global" else
+                            "smem", R.dtype]] += 1
     return x
 
 

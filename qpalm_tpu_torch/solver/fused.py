@@ -57,8 +57,7 @@ class FusedState(NamedTuple):
 # Largest padded n the streaming tier takes.  This is a routing rule, not a
 # limit of the card: past it the reference leaves its fused kernel for the
 # general solver loop (qpalm_tpu/solver/fused.py:65 STREAM_WALL, reached from
-# qpalm_tpu/batch.py:162), which the port has not ported yet (ROADMAP.md,
-# section 1 item 3), so the port refuses those shapes instead.
+# qpalm_tpu/batch.py:162), and so does batch.solve_batch (solver/core.py).
 STREAM_N_MAX = 352
 
 
@@ -126,8 +125,8 @@ def _tier(qa_panel: int, n: int, m: int) -> str:
                 f"fused_palm: n={n}, m={m} has no fused memory plan (n over "
                 f"{STREAM_N_MAX}, or the streaming tier's vectors over "
                 f"{SMEM_LIMIT} bytes of shared memory): the reference runs "
-                "the general solver loop there, which is not ported yet "
-                "(ROADMAP.md, section 1 item 3)")
+                "the general solver loop there, as batch.solve_batch does "
+                "(solver/core.py)")
         return tier
     if qa_panel < 0:
         raise ValueError(f"qa_panel must be -2, 0 or positive, got {qa_panel}")

@@ -84,6 +84,28 @@ def _take(data: QPData, idx) -> QPData:
     return QPData(*(a[idx] for a in data))
 
 
+def retry_rejected(d64: QPData, x0, y0, ok, x, y) -> int:
+    """The row's retry of the lanes the first polish rejected (`ok` False):
+    polish_batch_np(rounds=3) from the solve's x0, y0, then the finisher
+    and a last polish on the lanes still rejected.  Updates ok, x and y in
+    place; returns how many lanes went to the finisher."""
+    bad = np.flatnonzero(~ok)
+    if not len(bad):
+        return 0
+    pol2 = polish_batch_np(_take(d64, bad), x0[bad], y0[bad], eps_abs=EPS,
+                           eps_rel=EPS, rounds=3)
+    ok[bad], x[bad], y[bad] = pol2.ok, pol2.x, pol2.y
+    still = bad[~pol2.ok]
+    if len(still):
+        sub = _take(d64, still)
+        fin = palm_finish_np(sub, pol2.x[~pol2.ok], pol2.y[~pol2.ok],
+                             eps_abs=EPS, eps_rel=EPS)
+        pol3 = polish_batch_np(sub, fin.x, fin.y, eps_abs=EPS, eps_rel=EPS,
+                               rounds=1, refine_steps=0)
+        ok[still], x[still], y[still] = pol3.ok, pol3.x, pol3.y
+    return len(still)
+
+
 def run_row(family: str, size: int, device="cuda", batch: int = 0) -> dict:
     """One row of the sweep; returns its numbers.  `certified` counts the
     lanes whose final polish check passed at 1e-6, `referee_disagreements`
@@ -119,20 +141,7 @@ def run_row(family: str, size: int, device="cuda", batch: int = 0) -> dict:
     x, y = pol.x.copy(), pol.y.copy()
     t3 = time.perf_counter()
     bad = np.flatnonzero(~ok)
-    n_finish = 0
-    if len(bad):
-        pol2 = polish_batch_np(_take(d64, bad), x32[bad], y32[bad],
-                               eps_abs=EPS, eps_rel=EPS, rounds=3)
-        ok[bad], x[bad], y[bad] = pol2.ok, pol2.x, pol2.y
-        still = bad[~pol2.ok]
-        n_finish = len(still)
-        if n_finish:
-            sub = _take(d64, still)
-            fin = palm_finish_np(sub, pol2.x[~pol2.ok], pol2.y[~pol2.ok],
-                                 eps_abs=EPS, eps_rel=EPS)
-            pol3 = polish_batch_np(sub, fin.x, fin.y, eps_abs=EPS,
-                                   eps_rel=EPS, rounds=1, refine_steps=0)
-            ok[still], x[still], y[still] = pol3.ok, pol3.x, pol3.y
+    n_finish = retry_rejected(d64, x32, y32, ok, x, y)
     t4 = time.perf_counter()
 
     viol = referee.check(*d64, x, y, EPS, EPS)[0]

@@ -2,8 +2,8 @@
 
 `Settings` keeps the reference package's fields and defaults, so a settings
 object moves between the two packages field by field (`settings_from`).
-`QPData` and `ScalingInfo` hold batch-first torch tensors: every field has
-the batch as its leading dimension.
+`QPData`, `ScalingInfo` and `SolverState` hold batch-first torch tensors:
+every field has the batch as its leading dimension.
 """
 
 from __future__ import annotations
@@ -115,3 +115,73 @@ def qpdata_from_numpy(Q, A, q, bmin, bmax, c, device) -> QPData:
     keeping their dtype."""
     return QPData(*(torch.as_tensor(np.array(a), device=device)
                     for a in (Q, A, q, bmin, bmax, c)))
+
+
+class SolverState(NamedTuple):
+    """State of the general solver loop (solver/core.py), field for field
+    the reference's SolverState (qpalm_tpu/types.py:145-215, the functional
+    QPALMWorkspace, reference include/types.h:197-314), batch first: each
+    (n,) or (m,) vector of the reference is (B, n) or (B, m) here, each
+    scalar (B,), the cached factor L (B, n, n)."""
+
+    x: torch.Tensor  # scaled primal iterate
+    y: torch.Tensor  # scaled dual iterate
+    x0: torch.Tensor  # proximal center
+    x_prev: torch.Tensor
+    Qx: torch.Tensor  # Q x (+ x/gamma when proximal)
+    Ax: torch.Tensor
+    Aty: torch.Tensor
+    Axys: torch.Tensor  # Ax + y/sigma
+    z: torch.Tensor  # clamp(Axys, bmin, bmax)
+    pri_res: torch.Tensor  # Ax - z
+    pri_res_in: torch.Tensor  # pri_res at the last outer update
+    yh: torch.Tensor  # candidate dual y + sigma * pri_res
+    Atyh: torch.Tensor
+    df: torch.Tensor  # gradient of f
+    dphi: torch.Tensor  # gradient of phi
+    dphi_prev: torch.Tensor
+    d: torch.Tensor  # Newton direction
+    Qd: torch.Tensor  # after the update: tau (Qd [+ d/gamma])
+    Ad: torch.Tensor  # after the update: tau Ad
+    tau: torch.Tensor  # step
+    active: torch.Tensor  # bool
+    active_old: torch.Tensor  # bool
+    nb_enter: torch.Tensor  # int32
+    nb_leave: torch.Tensor  # int32
+    L: torch.Tensor  # cached upper Cholesky factor of the Schur matrix
+    factor_valid: torch.Tensor  # bool: L matches (active, sigma, gamma)
+    gersh: torch.Tensor  # Gershgorin bound of A' diag(sigma active) A
+    sigma: torch.Tensor
+    sigma_inv: torch.Tensor
+    sqrt_sigma: torch.Tensor
+    gamma: torch.Tensor
+    gamma_maxed: torch.Tensor  # bool
+    gamma_max: torch.Tensor  # per problem: the nonconvex pins
+    eps_abs_in: torch.Tensor
+    eps_rel_in: torch.Tensor
+    eps_k_abs: torch.Tensor  # nonconvex proximal-center tolerances
+    eps_k_rel: torch.Tensor
+    pri_res_norm: torch.Tensor
+    dua_res_norm: torch.Tensor
+    dua2_res_norm: torch.Tensor
+    eps_pri: torch.Tensor
+    eps_dua: torch.Tensor
+    eps_dua_in: torch.Tensor
+    delta_y: torch.Tensor  # infeasibility certificates
+    delta_x: torch.Tensor
+    iter: torch.Tensor  # int32
+    iter_out: torch.Tensor
+    prev_iter: torch.Tensor
+    no_change: torch.Tensor  # iterations without an active-set change
+    done: torch.Tensor  # bool
+    status: torch.Tensor  # int32
+    dual_objective: torch.Tensor
+
+
+def solverstate_from_numpy(state, device) -> SolverState:
+    """The port's SolverState from a batched reference SolverState (any
+    object with its fields as arrays, for example the JAX package's state
+    after np.asarray of each field), on `device`, keeping every dtype."""
+    return SolverState(*(torch.as_tensor(np.array(getattr(state, f)),
+                                         device=device)
+                         for f in SolverState._fields))

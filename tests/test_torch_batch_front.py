@@ -190,11 +190,10 @@ def test_batch_result_helpers_and_objective():
 ])
 def test_fused_eligible_rules(kw, eligible):
     s = Settings(**{**S32, **kw})
-    assert _fused_eligible(s, 64, 96, "cpu") is eligible
-    assert _fused_eligible(s, 64, 96, "cuda") is eligible
+    assert _fused_eligible(s, 64, 96) is eligible
     if not eligible and s.use_fused != "never":
-        with pytest.raises(ValueError, match="ROADMAP"):
-            _fused_eligible(s.replace(use_fused="always"), 64, 96, "cpu")
+        with pytest.raises(ValueError, match="general loop"):
+            _fused_eligible(s.replace(use_fused="always"), 64, 96)
 
 
 @pytest.mark.parametrize("n_pad,m_pad,eligible", [
@@ -204,13 +203,12 @@ def test_fused_eligible_shared_memory_plan(n_pad, m_pad, eligible):
     """K1 keeps Q, A and M in one block's 227 KB of shared memory up to
     n_pad = 160 with few rows; past that its streaming tier takes the shape
     up to n_pad 352, as long as its vectors fit.  The rest is the general
-    loop's (ROADMAP.md section 1 item 3)."""
+    loop's (solver/core.py)."""
     s = Settings(**S32)
-    assert _fused_eligible(s, n_pad, m_pad, "cpu") is eligible
+    assert _fused_eligible(s, n_pad, m_pad) is eligible
     if not eligible:
-        with pytest.raises(ValueError, match="section 1 item 3"):
-            _fused_eligible(s.replace(use_fused="always"), n_pad, m_pad,
-                            "cuda")
+        with pytest.raises(ValueError, match="general loop"):
+            _fused_eligible(s.replace(use_fused="always"), n_pad, m_pad)
 
 
 def test_boxqp_is_the_bench_generator():

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from qpalm_tpu_torch.linalg import chol
 from qpalm_tpu_torch.linalg.chol import (cholesky_solve, cholesky_solve_plain,
                                          cholesky_upper, cholesky_upper_plain)
 
@@ -72,10 +73,10 @@ def test_solve_plain_identity_rhs_gives_inverse():
 
 
 def _solve_in_kernel_order(R, b):
-    """csrc/chol.cu's solve as scalar float32 steps, one column at a time:
+    """csrc/chol.cu's solve as scalar steps in b's precision, one column at a time:
     forward x_l -= y_j R_jl, then backward x_l /= R_ll and x_r -= R_rl x_l
     for r < l, l from n - 1 down."""
-    f = np.float32
+    f = np.float64 if b.dtype == np.float64 else np.float32
     x = b.astype(f).copy()
     B, n, k = x.shape
     for i in range(B):
@@ -161,8 +162,143 @@ def test_cuda_solve_is_bit_identical_to_plain(B, n, k):
 
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
+    """Types and shapes no plan takes raise; since the global plan, f64
+    and n past shared memory are taken."""
     dev = _cuda()
     with pytest.raises(ValueError):
-        cholesky_upper(torch.eye(4, dtype=torch.float64, device=dev)[None])
+        cholesky_upper(torch.eye(4, dtype=torch.float16, device=dev)[None])
     with pytest.raises(ValueError):
-        cholesky_upper(torch.eye(256, device=dev)[None])  # over 227 KB
+        cholesky_upper(torch.eye(4, device=dev))  # not batched
+    with pytest.raises(ValueError):
+        cholesky_solve(torch.eye(4, device=dev)[None],
+                       torch.ones((1, 4), dtype=torch.float64, device=dev))
+    big = chol.SMEM_LIMIT // 16 + 1  # the global plan's vectors over 227 KB
+    with pytest.raises(ValueError, match="fits no plan"):
+        cholesky_solve(torch.empty((1, big, big), dtype=torch.float64,
+                                   device=dev),
+                       torch.empty((1, big), dtype=torch.float64,
+                                   device=dev))
+
+
+@pytest.mark.parametrize("n,dtype,plan", [
+    (64, torch.float32, "smem"), (241, torch.float32, "smem"),
+    (242, torch.float32, "global"), (480, torch.float32, "global"),
+    (64, torch.float64, "smem"), (170, torch.float64, "smem"),
+    (171, torch.float64, "global"), (224, torch.float64, "global"),
+    (chol.SMEM_LIMIT // 16 + 1, torch.float64, "global")])
+def test_factor_plan_selection(n, dtype, plan):
+    """The factor keeps the matrix in shared memory while n x n elements
+    fit 227 KB (f32 n <= 241, f64 n <= 170), else in global memory, which
+    takes every n."""
+    assert chol.factor_plan(n, dtype) == plan
+
+
+@pytest.mark.parametrize("B,n,k,dtype,plan", [
+    (512, 64, 1, torch.float32, ("panel", 64)),
+    (64, 64, 1, torch.float32, ("panel", 32)),
+    (64, 100, 130, torch.float32, ("entry", 64)),
+    (64, 240, 1, torch.float32, ("entry", 1)),
+    (64, 240, 64, torch.float32, ("global", 1)),
+    (64, 480, 1, torch.float32, ("global", 1)),
+    (512, 64, 1, torch.float64, ("entry", 1)),
+    (512, 64, 64, torch.float64, ("entry", 64)),
+    (64, 169, 1, torch.float64, ("entry", 1)),
+    (64, 170, 1, torch.float64, ("global", 1)),
+    (128, 224, 1, torch.float64, ("global", 1))])
+def test_solve_plan_selection(B, n, k, dtype, plan):
+    """The solve: the blocked kernel for f32 n a multiple of 8 whose plan
+    fits, else R and the columns in shared memory, else global memory."""
+    assert chol.solve_plan(B, n, k, dtype, sms=132) == plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.int32])
+def test_plans_raise_on_types_no_kernel_takes(dtype):
+    with pytest.raises(ValueError, match="no kernel"):
+        chol.factor_plan(8, dtype)
+    with pytest.raises(ValueError, match="no kernel"):
+        chol.solve_plan(1, 8, 1, dtype)
+
+
+def test_dispatch_raises_rather_than_falls_back():
+    """An input that is not on the CPU reaches a kernel or raises: with no
+    plan it raises before anything is built or launched, and never runs
+    the twin or a library call (a meta tensor stands in for a card's)."""
+    big = chol.SMEM_LIMIT // 16 + 1
+    before = (cholesky_upper.launches, cholesky_solve.launches)
+    M = torch.empty((2, big, big), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="fits no plan"):
+        chol.solve_plan(2, big, 1, torch.float64)
+    with pytest.raises(ValueError):
+        cholesky_upper(M)
+    with pytest.raises(ValueError):
+        cholesky_solve(M, torch.empty((2, big), dtype=torch.float64,
+                                      device="meta"))
+    with pytest.raises(ValueError):
+        cholesky_upper(torch.empty((2, 8, 8), dtype=torch.float16,
+                                   device="meta"))
+    with pytest.raises(ValueError):
+        cholesky_solve(torch.empty((2, 8, 8), device="meta"),
+                       torch.empty((2, 8), dtype=torch.float64,
+                                   device="meta"))
+    assert (cholesky_upper.launches, cholesky_solve.launches) == before
+
+
+@pytest.mark.parametrize("n", [8, 33])
+def test_twins_at_float64(n):
+    """The twins at f64: R'R = M to 1e-13, and R'R x = b to 1e-12; the
+    solve rounds as the kernel's scalar steps do, bit for bit."""
+    M = _spd_batch(3, n, seed=20, dtype=np.float64)
+    R = cholesky_upper_plain(torch.from_numpy(M))
+    assert R.dtype == torch.float64
+    Rn = R.numpy()
+    assert np.array_equal(Rn, np.triu(Rn))
+    rel = np.max(np.abs(np.transpose(Rn, (0, 2, 1)) @ Rn - M)) / np.abs(M).max()
+    assert rel < 1e-13
+    b = np.random.default_rng(21).standard_normal((3, n, 2))
+    x = cholesky_solve_plain(R, torch.from_numpy(b)).numpy()
+    assert np.max(np.abs(M @ x - b)) < 1e-12 * np.abs(M).max()
+    assert np.allclose(x, np.linalg.solve(M, b), rtol=1e-10, atol=1e-12)
+    assert np.array_equal(x, _solve_in_kernel_order(Rn, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,dtype", [
+    (37, 64, torch.float64), (9, 170, torch.float64),
+    (9, 171, torch.float64), (9, 224, torch.float64),
+    (9, 242, torch.float32), (5, 480, torch.float32), (3, 7, torch.float64),
+    (3, 300, torch.float64)])
+def test_cuda_factor_plans_are_bit_identical_to_plain(B, n, dtype):
+    """K2a's f64 instantiation and its global-memory plan keep every
+    entry's arithmetic of the twin: bit for bit."""
+    dev = _cuda()
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    M = torch.from_numpy(_spd_batch(B, n, seed=22, dtype=np_dt)).to(dev)
+    before = dict(chol.KERNEL_LAUNCHES)
+    R = cholesky_upper(M)
+    name = chol.KERNELS["factor", chol.factor_plan(n, dtype), dtype]
+    assert chol.KERNEL_LAUNCHES[name] == before.get(name, 0) + 1
+    assert R.dtype == dtype
+    assert torch.equal(R, cholesky_upper_plain(M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,k,dtype", [
+    (37, 64, 0, torch.float64), (37, 64, 64, torch.float64),
+    (9, 169, 0, torch.float64), (9, 170, 0, torch.float64),
+    (9, 224, 3, torch.float64), (9, 240, 64, torch.float32),
+    (5, 480, 0, torch.float32), (3, 7, 5, torch.float64),
+    (3, 300, 2, torch.float64)])
+def test_cuda_solve_plans_are_bit_identical_to_plain(B, n, k, dtype):
+    """K2b's f64 instantiation and its global plan against the twin, bit
+    for bit; k = 0 is one vector."""
+    dev = _cuda()
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    R = cholesky_upper_plain(torch.from_numpy(
+        _spd_batch(B, n, seed=23, dtype=np_dt)).to(dev))
+    rng = np.random.default_rng(24)
+    b = torch.from_numpy(rng.standard_normal(
+        (B, n) if k == 0 else (B, n, k)).astype(np_dt)).to(dev)
+    x = cholesky_solve(R, b)
+    assert x.dtype == dtype
+    assert torch.equal(x, cholesky_solve_plain(R, b))

@@ -214,22 +214,53 @@ def test_plain_twin_chunked_keeps_certificates():
 
 
 def test_out_of_slice_features_raise():
-    """What the port does not run yet raises NotImplementedError naming its
-    ROADMAP.md item, with no fallback: the general solver loop
-    (use_fused='never', a setting only that loop takes, or a shape past
-    K1's streaming tier) and the f64 escalation."""
+    """What K1 does not take now routes to the general loop and matches
+    the reference's general loop at the f32 bar: use_fused='never',
+    refinement, a time limit, a shape past K1's streaming tier, and the
+    f64 escalation (solve_many and solve_batch_escalate).  What is still
+    outside the port raises, with no fallback: the factorization methods
+    other than SCHUR (ROADMAP.md section 1 items 6 and 9), and a negative
+    chunk."""
+    pytest.importorskip("jax")
+    import dataclasses
+
+    import qpalm_tpu
+    from qpalm_tpu import batch as jbatch
+
+    def ref(fn, probs, s, **kw):
+        return fn(probs, qpalm_tpu.Settings(**dataclasses.asdict(s)), **kw)
+
     probs = [random_convex_qp(4, 6, seed=1)]
     for kw in (dict(use_fused="never"), dict(max_refine=2),
                dict(time_limit=10.0)):
-        with pytest.raises(NotImplementedError, match="section 1 item 3"):
-            solve_batch(probs, _settings(2, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="section 1 item 3"):
-        solve_batch([random_convex_qp(360, 8, seed=2)], _settings(2),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_many(probs, _settings(2), escalate=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="section 1 items 3"):
-        solve_batch_escalate(probs, _settings(2))
+        s = _settings(2, **kw)
+        got, want = solve_batch(probs, s, device="cpu"), \
+            ref(jbatch.solve_batch, probs, s)
+        assert np.array_equal(got.status.numpy(), np.asarray(want.status))
+        assert np.array_equal(got.iterations.numpy(),
+                              np.asarray(want.iterations))
+        assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
+    wide = [random_convex_qp(360, 8, seed=2)]
+    s = _settings(2, max_iter=2)
+    got, want = solve_batch(wide, s, device="cpu"), \
+        ref(jbatch.solve_batch, wide, s)
+    assert np.array_equal(got.status.numpy(), np.asarray(want.status))
+    assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
+    s = _settings(2, max_iter=5, use_fused="never")
+    many = solve_many(probs, s, escalate=True, device="cpu")
+    want = ref(jbatch.solve_many, probs, s, escalate=True)
+    assert np.array_equal(many.status, want.status)
+    assert np.array_equal(many.iterations, want.iterations)
+    esc = solve_batch_escalate(probs, s, device="cpu")
+    want = ref(jbatch.solve_batch_escalate, probs, s)
+    assert np.array_equal(esc.status.numpy(), np.asarray(want.status))
+    assert np.abs(esc.x.numpy() - np.asarray(want.x)).max() < 1e-4
+    for method, item in ((C.FACTORIZE_KKT, "item 6"),
+                         (C.FACTORIZE_CG, "item 6"),
+                         (C.FACTORIZE_STAGE, "item 9")):
+        with pytest.raises(NotImplementedError, match=item):
+            solve_batch(probs, _settings(2, factorization_method=method),
+                        device="cpu")
     with pytest.raises(ValueError, match="chunk"):
         F.solve_batch_fused(stack_problems(probs, np.float32), _settings(2),
                             chunk=-1)

@@ -19,6 +19,7 @@ PORT_MODULES = [
     "qpalm_tpu_torch.polish", "qpalm_tpu_torch.finish_np",
     "qpalm_tpu_torch.sweep", "qpalm_tpu_torch.probe",
     "qpalm_tpu_torch.baseline_c", "qpalm_tpu_torch.bench",
+    "qpalm_tpu_torch.solver.core", "qpalm_tpu_torch.solver.linesearch",
 ]
 
 

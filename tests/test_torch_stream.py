@@ -108,21 +108,32 @@ def test_sweep_rows_are_admitted_with_their_tier(family, size):
     n_pad = -(-Q.shape[0] // 8) * 8
     m_pad = -(-A.shape[0] // 8) * 8
     s = _settings(2, max_iter=400)
-    for device in ("cpu", "cuda"):
-        assert _not_fused(s, n_pad, m_pad, device) is None
+    assert _not_fused(s, n_pad, m_pad) is None
     assert F.pick_tier(n_pad, m_pad) == _expected_tier(family, size)
 
 
 def test_shapes_past_the_streaming_rule_raise():
-    """n_pad 360 has no fused plan: the reference runs its general loop
-    there (ROADMAP.md section 1 item 3), so the port raises."""
+    """n_pad 360 has no fused plan: solve_batch takes the general loop
+    there, as the reference does, and matches it (two iterations at f32);
+    K1 itself still refuses the shape."""
+    pytest.importorskip("jax")
+    import dataclasses
+
+    import qpalm_tpu
+    from qpalm_tpu.batch import solve_batch as jsolve
+
     assert F.pick_tier(352, 352) == "stream"
     assert F.pick_tier(360, 360) is None
     probs = [random_convex_qp(360, 360, seed=3)]
-    with pytest.raises(NotImplementedError, match="section 1 item 3"):
-        solve_batch(probs, _settings(2), device="cpu")
+    s = _settings(2, max_iter=2)
+    got = solve_batch(probs, s, device="cpu")
+    want = jsolve(probs, qpalm_tpu.Settings(**dataclasses.asdict(s)))
+    assert np.array_equal(got.status.numpy(), np.asarray(want.status))
+    assert np.array_equal(got.iterations.numpy(),
+                          np.asarray(want.iterations))
+    assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
     data = stack_problems(probs, np.float32)
-    with pytest.raises(NotImplementedError, match="section 1 item 3"):
+    with pytest.raises(NotImplementedError, match="general solver loop"):
         F.solve_batch_fused(data, _settings(2))
     with pytest.raises(ValueError, match="qa_panel"):
         F.solve_batch_fused(data, _settings(2), qa_panel=-1)

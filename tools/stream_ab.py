@@ -1,7 +1,8 @@
-"""Time K1, or K2's solve, in one or more copies of the port, on the card.
+"""Time K1, or K2's factor or solve, in one or more copies of the port, on
+the card.
 
-    python tools/stream_ab.py [--tier stream|smem] [--kernel k1|chol_solve]
-                              [DIR ...]
+    python tools/stream_ab.py [--tier stream|smem]
+                              [--kernel k1|chol|chol_solve] [DIR ...]
 
 Each DIR holds a `qpalm_tpu_torch` package (default: this checkout's).
 Each copy is built and timed in a process of its own, in the order given,
@@ -26,7 +27,8 @@ right-hand sides, as the polish calls it, at (512, 64, 64) and at the
 second round's (64, 64, 64), each the mean of 100 launches by CUDA events
 after 0.3 s of warm-up, queued behind a device sleep so that the host's
 time per call is not counted, from the factor of chip_smoke.py phase 3's
-SPD batch.
+SPD batch.  `--kernel chol`: K2a (`linalg.chol.cholesky_upper`) on that
+batch, timed the same way.
 """
 
 import argparse
@@ -63,8 +65,28 @@ def timed(sd, scal, st, T, s):
                 max_iterations=int(out.sc[:, F._ITER].max()),
                 state_sha256=sha.hexdigest()[:16], split_ms=split)
 
+def queued(fn):
+    # fn()'s output and its mean milliseconds over 100 launches
+    out = fn()
+    warm_until = time.perf_counter() + 0.3  # the card raises its clock
+    while time.perf_counter() < warm_until:
+        fn()
+        torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    # the host queues the launches behind a device sleep, so that they
+    # run back to back and the wrapper's host time is not counted
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(100):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    sha = hashlib.sha256(out.cpu().numpy().tobytes())
+    return dict(ms=start.elapsed_time(end) / 100,
+                out_sha256=sha.hexdigest()[:16])
+
 runs = {}
-if sys.argv[2] == "chol_solve":
+if sys.argv[2] in ("chol", "chol_solve"):
     from qpalm_tpu_torch.linalg import chol
     G = np.random.default_rng(0).standard_normal((512, 64, 64)).astype(
         np.float32)
@@ -73,24 +95,12 @@ if sys.argv[2] == "chol_solve":
     R = chol.cholesky_upper(M)
     for B in (512, 64):
         Rb = R[:B].contiguous()
+        if sys.argv[2] == "chol":
+            Mb = M[:B].contiguous()
+            runs[f"({B}, 64, 64)"] = queued(lambda: chol.cholesky_upper(Mb))
+            continue
         eye = torch.eye(64, device="cuda").expand(B, 64, 64).contiguous()
-        out = chol.cholesky_solve(Rb, eye)
-        warm_until = time.perf_counter() + 0.3  # the card raises its clock
-        while time.perf_counter() < warm_until:
-            chol.cholesky_solve(Rb, eye)
-            torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        # the host queues the launches behind a device sleep, so that they
-        # run back to back and the wrapper's host time is not counted
-        torch.cuda._sleep(40_000_000)
-        start.record()
-        for _ in range(100):
-            chol.cholesky_solve(Rb, eye)
-        end.record()
-        torch.cuda.synchronize()
-        sha = hashlib.sha256(out.cpu().numpy().tobytes())
-        runs[f"({B}, 64, 64)"] = dict(ms=start.elapsed_time(end) / 100,
-                                      x_sha256=sha.hexdigest()[:16])
+        runs[f"({B}, 64, 64)"] = queued(lambda: chol.cholesky_solve(Rb, eye))
 elif sys.argv[2] == "stream":
     from qpalm_tpu_torch import sweep
     s = sweep.S32
@@ -123,7 +133,8 @@ print(json.dumps({"dir": sys.argv[1], "device": torch.cuda.get_device_name(0),
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tier", choices=("stream", "smem"), default="stream")
-    ap.add_argument("--kernel", choices=("k1", "chol_solve"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "chol", "chol_solve"),
+                    default="k1")
     ap.add_argument("dirs", nargs="*")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

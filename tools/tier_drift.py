@@ -1,13 +1,16 @@
 #!/usr/bin/env python
-"""How far K1's two memory tiers drift apart at the headline shape, in the
-JAX package and in the PyTorch port, on the CPU.
+"""How far K1's two memory tiers, and K1 and the general loop, drift
+apart at the headline shape, in the JAX package and in the PyTorch port,
+on the CPU.
 
 The on-chip and streaming tiers assemble the Schur matrix in different
-orders and so round apart.  This runs the headline problems
+orders and so round apart, and the general loop (solver/core.py) rounds
+apart from both.  This runs the headline problems
 (workloads.make_problems(B, 64, 96, seed=7), bench.py's f32 settings)
 through both tiers of the reference kernel (interpret mode) and of the
 port's plain twin (bit-identical to the CUDA kernel at this shape), and
-prints how many statuses and iteration counts each pair shares.
+through each package's general loop (use_fused="never"), and prints how
+many statuses and iteration counts each pair shares.
 
     python tools/tier_drift.py [B]     (B = 128 by default; 512 takes
                                         several minutes)
@@ -26,9 +29,10 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 import qpalm_tpu  # noqa: E402
+from qpalm_tpu.batch import solve_batch as jgeneral  # noqa: E402
 from qpalm_tpu.batch import stack_problems as jstack  # noqa: E402
 from qpalm_tpu.solver.fused import solve_batch_fused as jsolve  # noqa: E402
-from qpalm_tpu_torch.batch import stack_problems  # noqa: E402
+from qpalm_tpu_torch.batch import solve_batch, stack_problems  # noqa: E402
 from qpalm_tpu_torch.solver import fused as F  # noqa: E402
 from qpalm_tpu_torch.types import Settings  # noqa: E402
 from qpalm_tpu_torch.workloads import make_problems  # noqa: E402
@@ -48,10 +52,19 @@ def main():
         out[f"reference qa_panel={panel}"] = [np.asarray(a) for a in jsolve(
             jstack(probs, np.float32), qpalm_tpu.Settings(**S32),
             interpret=True, qa_panel=panel)]
+    # on the CPU the reference's solve_batch runs its general loop
+    never = dict(S32, use_fused="never")
+    out["reference general"] = [np.asarray(a) for a in jgeneral(
+        probs, qpalm_tpu.Settings(**never))]
+    out["port general"] = [a.numpy() for a in solve_batch(
+        probs, Settings(**never), device="cpu")]
     for a, b in (("reference qa_panel=0", "reference qa_panel=8"),
                  ("port qa_panel=0", "port qa_panel=8"),
                  ("port qa_panel=0", "reference qa_panel=0"),
-                 ("port qa_panel=8", "reference qa_panel=8")):
+                 ("port qa_panel=8", "reference qa_panel=8"),
+                 ("reference qa_panel=0", "reference general"),
+                 ("port qa_panel=0", "port general"),
+                 ("port general", "reference general")):
         u, v = out[a], out[b]
         print(f"{a} vs {b}: statuses equal {(u[2] == v[2]).sum()}/{nb}, "
               f"iteration counts equal {(u[3] == v[3]).sum()}/{nb}, "
