@@ -66,11 +66,14 @@ Phases, each asserting, any failure exiting non-zero:
      on every lane, 0 referee disagreements, a baseline divisor, and K1, K2a
      and K2b launched (counters zeroed before and read after);
  14. the general loop (solver/core.py) on the card: K2's f64 instantiation
-     at (512, 64, 64), its global-memory plan at f64 (128, 224, 224), f64
-     and f32 (64, 480, 480), and the f32 one-vector panel solve at
-     (512, 64), factor and one-vector solve, bit for bit against the twins,
-     timed beside torch.linalg.cholesky and torch.cholesky_solve (each
-     kernels-line row at the shape of the run whose launches it counts);
+     at (512, 64, 64) (the one-vector solve a warp a matrix), its
+     global-memory plan (the cluster factor; the plan it picks printed) at
+     f64 (128, 224, 224), f64 and f32 (64, 480, 480), the ragged f64
+     (64, 477, 477) and f32 (37, 483, 483), and the f32 one-vector panel
+     solve at (512, 64), factor and one-vector solve, bit for bit against
+     the twins, timed beside torch.linalg.cholesky and torch.cholesky_solve
+     (each kernels-line row at the shape of the run whose launches it
+     counts);
      the headline through the general loop at bench.py's f32 settings
      (use_fused="never", statuses and counts against phase 4's K1), at the
      default Settings() (f64, max_refine=3, eps 1e-4: every lane solved, x
@@ -143,9 +146,11 @@ DEFAULT_X_BAR, TIGHT_X_BAR = 1e-3, 1e-4
 # of the phase-14 run whose launches it counts: the headline (512, 64) at
 # Settings() for f64 in shared memory and at f32 for the one-vector panel
 # solve, randomQP n=480 (64 problems) at f32 and f64 for the global plan.
-# f64 (128, 224) is held to the twins without a row of its own.
+# f64 (128, 224) and the ragged shapes (n not a multiple of the cluster
+# factor's 8-row tiles, a ragged last panel) are held to the twins without
+# a row of their own.
 K2_SHAPES = (
-    ("f64 (512, 64)", 512, 64, "float64", ("smem", "entry"),
+    ("f64 (512, 64)", 512, 64, "float64", ("smem", "warp"),
      ("chol_f64", "chol_solve_f64")),
     ("f64 (128, 224)", 128, 224, "float64", ("global", "global"),
      (None, None)),
@@ -154,7 +159,11 @@ K2_SHAPES = (
     ("f32 (64, 480)", 64, 480, "float32", ("global", "global"),
      ("chol_global", "chol_solve_global")),
     ("f32 (512, 64)", 512, 64, "float32", ("smem", "panel"),
-     (None, "chol_solve_vec")))
+     (None, "chol_solve_vec")),
+    ("f64 (64, 477)", 64, 477, "float64", ("global", "global"),
+     (None, None)),
+    ("f32 (37, 483)", 37, 483, "float32", ("global", "global"),
+     (None, None)))
 # phase 14: lanes of the headline at Settings() held on the card to the
 # port's own general loop on the CPU, at the CPU tests' f64 bar
 CPU_LANES = 32
@@ -210,8 +219,15 @@ KERNEL_NAMES = (("fused_palm_kernelILb1E", "K1 streaming (fused_palm_kernel"
                  "<true>)"), ("fused_palm_kernelILb0ELb0E", "K1 on chip"),
                 ("fused_palm_kernelILb0ELb1E", "K1 on chip, profiled"),
                 ("11chol_kernel", "K2a"),
+                ("19chol_cluster_kernelIfLb0", "K2a cluster f32"),
+                ("19chol_cluster_kernelIfLb1", "K2a cluster f32, profiled"),
+                ("19chol_cluster_kernelIdLb0", "K2a cluster f64"),
+                ("19chol_cluster_kernelIdLb1", "K2a cluster f64, profiled"),
                 ("23chol_solve_panel_kernel", "K2b blocked"),
                 ("17chol_solve_kernel", "K2b entry by entry"),
+                ("22chol_solve_warp_kernelIdLi2E",
+                 "K2b f64 one vector (a warp, n <= 64)"),
+                ("24chol_solve_global_kernel", "K2b global"),
                 ("assembly_probe_kernel", "assembly probe"),
                 ("scratch_probe_kernel", "scratch probe"))
 
@@ -497,7 +513,7 @@ def phase_chunk_warm(dev, probs, s32, x_cold, y_cold):
     require(n_warm > 0, "warm start: K1 was not launched")
     sd, scal, st = F._prepare(stack_problems(warm, np.float32, device=dev),
                               s32, x_ws=x_ws, y_ws=y_ws)
-    k_np, _, _ = kernel_vs_plain(F, sd, scal, st, s32, "warm start")
+    k_np, _, kw = kernel_vs_plain(F, sd, scal, st, s32, "warm start")
     require(np.array_equal(res.status.cpu().numpy(), k_np[2]),
             "warm start: solve_batch and K1 statuses differ")
     it_w = res.iterations.float().mean().item()
@@ -507,7 +523,10 @@ def phase_chunk_warm(dev, probs, s32, x_cold, y_cold):
     say(f"[chunk] chunk=16: {n_chunk} launches, statuses, iterations, x and "
         f"y bit-identical to one launch; [warm] q*1.01 warm-started: mean "
         f"iterations {it_w:.2f} vs cold {it_c:.2f}, solved "
-        f"{int((res.status == 1).sum())}/{len(warm)}, launches {n_warm}")
+        f"{int((res.status == 1).sum())}/{len(warm)}, launches {n_warm}; "
+        f"K1 {kw['ms']:.3f} ms, bound {kw['bound_ms']:.4f} ms "
+        f"({kw['bound_by']}, the warm start's {int(k_np[3].sum())} "
+        "iterations)")
 
 
 def phase_stream_headline(sd, scal, st, s32, k_np):
@@ -900,6 +919,12 @@ def phase_general(dev, probs, s32, k_np, x_cert, ok_cert):
         plans = (chol.factor_plan(n, M.dtype),
                  chol.solve_plan(nb, n, 1, M.dtype, sms)[0])
         require(plans == want, f"K2 {label}: plans {plans}, not {want}")
+        if plans[0] == "global":
+            gp = chol.global_plan(nb, n, M.dtype, sms)
+            say(f"[general K2 {label}] cluster factor: {gp.cluster} CTAs a "
+                f"matrix, panels of {gp.b} rows, "
+                f"{chol.global_smem_bytes(n, M.dtype, gp.b)} bytes of shared "
+                "memory a CTA")
         for row, num in zip(rows, k2_against_twins(chol, M, b, label)):
             if row is not None:
                 numbers[row] = num
@@ -936,7 +961,8 @@ def phase_general(dev, probs, s32, k_np, x_cert, ok_cert):
         require(dx <= bar, f"{label}: max|x - certified| {dx:.3e}")
         if label == "Settings()":
             launches["chol_f64"] = lb.get("chol_f64", 0)
-            launches["chol_solve_f64"] = lb.get("chol_solve_f64", 0)
+            # the kernels line's f64 one-vector row: the warp kernel
+            launches["chol_solve_f64"] = lb.get("chol_solve_warp_f64", 0)
             general_vs_cpu(probs[:CPU_LANES], res, Settings())
 
     # (c) randomQP n=480, past K1: the global plan, polished and refereed,

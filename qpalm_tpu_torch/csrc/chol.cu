@@ -42,16 +42,23 @@
 // factor's n x n doubles in 227 KB).  Their dynamic shared memory is
 // declared as floats and cast: declared as bytes, the f32 factor ran 25%
 // slower with the same arithmetic (0.0564 against 0.0453 ms at
-// (512, 64, 64), tools/stream_ab.py --kernel chol, PERF.md).  Past shared memory (f32 n > 241,
-// f64 n > 170) a global-memory plan keeps R in global memory, one block
-// per matrix (chol_global_kernel, chol_solve_global_kernel, below), in
-// the same order of operations.  linalg/chol.py picks the plan.
+// (512, 64, 64), tools/stream_ab.py --kernel chol, PERF.md).  At f64 one
+// right-hand side a matrix (the general loop's solves) takes a warp a
+// matrix, R staged by one bulk copy (chol_solve_warp_kernel).  Past shared
+// memory (f32 n > 241, f64 n > 170) the factor runs right-looking in
+// panels across a thread block cluster (chol_cluster_kernel) and the solve
+// keeps R in global memory, one block a column (chol_solve_global_kernel),
+// in the same order of operations.  linalg/chol.py picks the plan.
 //
 // Entry points (plain C, for ctypes) launch on the given stream, allocate
 // nothing, do not synchronise, and return cudaGetLastError().
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "stream.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -101,6 +108,148 @@ __global__ void chol_solve_kernel(const T* __restrict__ gR,
     for (int r = 0; r < l; ++r) X[r * cols + c] -= R[r * n + l] * xl;
   }
   for (int l = 0; l < n; ++l) gx[boff + (size_t)l * k + col] = X[l * cols + c];
+}
+
+// R'R x = b for one matrix and one right-hand side, a block of one warp
+// (the f64 one-vector plan, n even, n <= 32 WARP_E): R's rows come into
+// shared memory by bulk asynchronous copies (one a row, rows s apart, s
+// = n or n + 2, so that s / 2 is odd: a column's entries then fall in
+// eight bank pairs, where rows n apart put a 64-row column in one) while
+// the lanes load b.  Lane t owns entries t, t + 32, ... of the vector in
+// registers, E = ceil(n / 32) of them.  The order of
+// chol_solve_global_kernel (below): forward in saxpy form (y_j = w_j /
+// R_jj, then w_l -= y_j R_jl for l > j), backward in column form (x_l =
+// y_l / R_ll, then y_r -= R_rl x_l for r < l), each product and each
+// difference rounded: bit for bit linalg/chol.py:cholesky_solve_plain.
+// What bounds it is the chain of 2n dependent divisions.  So that no
+// shuffle lies on that chain, every lane holds the step's numerator u and
+// forms the next one itself, from the next entry as it stood before the
+// step (shuffled from its owner while the division runs) less the step's
+// one term, exactly as the owner forms it; R's entries for a step are
+// loaded a step ahead.  It replaces one thread a matrix doing every step
+// alone (chol_solve_kernel at k = 1), R copied in element by element.
+constexpr int WARP_E = 6;  // entries of the vector a lane: n <= 192
+
+__host__ __device__ inline int warp_solve_stride(int n) {
+  return n % 4 ? n : n + 2;
+}
+
+template <typename T, int E>
+__global__ void __launch_bounds__(32)
+chol_solve_warp_kernel(const T* __restrict__ gR, const T* __restrict__ gb,
+                       T* __restrict__ gx, int n) {
+  extern __shared__ __align__(16) float smf[];
+  T* R = reinterpret_cast<T*>(smf);  // row r from R + r * s
+  __shared__ uint64_t bars[2];
+  const int lane = threadIdx.x, s = warp_solve_stride(n);
+  const uint32_t row_bytes = (uint32_t)(n * sizeof(T));
+  if (lane == 0) {
+    stream::bars_init(bars);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(stream::smem_addr(bars)), "r"(n * row_bytes)
+                 : "memory");
+  }
+  __syncwarp();  // the barrier's init and expected bytes before the copies
+  const T* src = gR + (size_t)blockIdx.x * n * n;
+  for (int r = lane; r < n; r += 32)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(stream::smem_addr(R + r * s)),
+        "l"(src + (size_t)r * n), "r"(row_bytes),
+        "r"(stream::smem_addr(bars))
+        : "memory");
+  const T* bv = gb + (size_t)blockIdx.x * n;
+  T v[E], rv[E], rn[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int l = lane + 32 * e;
+    v[e] = l < n ? bv[l] : T(0);
+  }
+  stream::bar_wait(bars, 0);
+  // forward: v holds w (entries > j) and y (entries <= j), rv row j of R,
+  // u = w_j
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int l = lane + 32 * e;
+    rv[e] = l < n ? R[l] : T(0);
+  }
+  T u = __shfl_sync(QP_FULL_MASK, v[0], 0);
+#pragma unroll
+  for (int e0 = 0; e0 < E; ++e0) {
+    for (int jj = 0; jj < 32; ++jj) {
+      const int j = 32 * e0 + jj;
+      if (j >= n) break;
+      const T wn = __shfl_sync(
+          QP_FULL_MASK, jj < 31 ? v[e0] : v[e0 + 1 < E ? e0 + 1 : e0],
+          (j + 1) & 31);
+      const T djj = R[j * s + j], dn = j + 1 < n ? R[j * s + j + 1] : T(0);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int l = lane + 32 * e;
+        rn[e] = j + 1 < n && l < n ? R[(j + 1) * s + l] : T(0);
+      }
+      const T yj = u / djj;
+      u = wn - yj * dn;  // w_{j+1}, as its owner forms it below
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int l = lane + 32 * e;
+        if (l > j && l < n) v[e] = v[e] - yj * rv[e];
+        if (l == j) v[e] = yj;
+        rv[e] = rn[e];
+      }
+    }
+  }
+  // backward: v holds y (entries < l) and x (entries >= l), rv column l
+  // of R, u = y_l
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int r = lane + 32 * e;
+    rv[e] = r < n ? R[r * s + n - 1] : T(0);
+  }
+#pragma unroll
+  for (int e0 = E - 1; e0 >= 0; --e0) {
+    for (int jj = 31; jj >= 0; --jj) {
+      const int l = 32 * e0 + jj;
+      if (l >= n) continue;
+      if (l == n - 1) u = __shfl_sync(QP_FULL_MASK, v[e0], jj);
+      const T yp = __shfl_sync(
+          QP_FULL_MASK, jj > 0 ? v[e0] : v[e0 > 0 ? e0 - 1 : 0],
+          (l - 1) & 31);
+      const T dll = R[l * s + l], dp = l > 0 ? R[(l - 1) * s + l] : T(0);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int r = lane + 32 * e;
+        rn[e] = l > 0 && r < n ? R[r * s + l - 1] : T(0);
+      }
+      const T xl = u / dll;
+      u = yp - dp * xl;  // y_{l-1}, as its owner forms it below
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int r = lane + 32 * e;
+        if (r < l) v[e] = v[e] - rv[e] * xl;
+        if (r == l) v[e] = xl;
+        rv[e] = rn[e];
+      }
+    }
+  }
+  T* xv = gx + (size_t)blockIdx.x * n;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int l = lane + 32 * e;
+    if (l < n) xv[l] = v[e];
+  }
+}
+
+template <int E>
+int launch_solve_warp(const double* R, const double* b, double* x, int B,
+                      int n, cudaStream_t s) {
+  const int smem = (int)((size_t)n * warp_solve_stride(n) * sizeof(double));
+  cudaError_t e = cudaFuncSetAttribute(
+      chol_solve_warp_kernel<double, E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  chol_solve_warp_kernel<double, E><<<B, 32, smem, s>>>(R, b, x, n);
+  return (int)cudaGetLastError();
 }
 
 constexpr int PANEL = 8;
@@ -244,23 +393,259 @@ chol_solve_panel_kernel(const float* __restrict__ gR,
   for (int l = 0; l < n; ++l) gx[boff + (size_t)l * k + col] = xc[l];
 }
 
-// The global-memory plan, for n whose matrix does not fit a block's shared
-// memory (f32 n > 241, f64 n > 170); one block per matrix, R in global
-// memory (0.92 MB at n = 480 f32, so mostly in L2).  The factor copies M
-// to R and runs chol_upper_inplace there, each chain unrolled by 8 so
-// that its loads are in flight together: every entry's operations and
-// their order are the shared-memory plan's, and so the twin's.
-constexpr int GLOBAL_THREADS = 512;
+// The global-memory factor, for n whose matrix does not fit one block's
+// shared memory (f32 n > 241, f64 n > 170): right-looking in panels of b
+// rows (b a multiple of CTILE), one cluster of C CTAs a matrix, one launch.
+// It replaces a left-looking plan that ran every entry's whole chain (up
+// to n terms, from L2 or HBM) in one block a matrix, 64 of 132 SMs busy
+// at the general loop's B = 64 (6.975 ms at f32 n = 480, PERF.md).
+//
+// The schedule, for panel rows p..p+bb-1:
+//  - every CTA gathers the panel (columns p..n-1 of rows p..p+bb-1 of R,
+//    which carry every earlier panel's update; of M for the first panel)
+//    into its own shared memory and factors it there, row by row,
+//    left-looking, one block barrier a row: the CTAs compute the same
+//    numbers, so no finished panel has to be published and waited for,
+//    and each CTA needs all of it for its trailing tiles;
+//  - each CTA updates its own tiles of the trailing upper triangle, CTILE x
+//    CTILE in registers, each loaded once and stored once into R,
+//    subtracting the panel's bb products in row order;
+//  - one cluster barrier (barrier.cluster.arrive.release / wait.acquire);
+//  - the CTAs write the panel's rows of R (zeros left of the diagonal).
+// The trailing triangle is dealt to the CTAs by tile column (tile column
+// tc to rank tc % C), so that the shrinking triangle stays balanced, and a
+// CTA's threads take its tiles in turn.
+//
+// What bounds it (cycle counters, tools/chol_plans.py): the panel rows'
+// chain (n rows of up to b subtractions, 1 / sqrt, a division and a
+// barrier; about half the time at n = 480) and the trailing updates.  A
+// variant that kept the trailing triangle in the cluster's shared memory
+// (4-8 CTAs a matrix at n = 480) ran in several waves at the general
+// loop's B = 64 and lost to one wave of 2-CTA clusters with the triangle
+// in R, which L2 holds (PERF.md).  linalg/chol.py:global_plan picks C and
+// b (and mirrors cluster_smem_bytes).  Every entry gets the twin's
+// arithmetic in the twin's order: entry (k, l) less R_ik R_il for i = 0,
+// 1, ..., k - 1 (the earlier panels' in the trailing updates, this
+// panel's in its row), each product and each difference rounded, then
+// times 1 / sqrt of the pivot so reduced (not rsqrt), the diagonal pivot
+// * inv: bit for bit linalg/chol.py:cholesky_upper_plain, as
+// stream.cuh:chol_blocked is.
+constexpr int CTILE = 8;
+constexpr int CLUSTER_THREADS = 256;
+constexpr int CLUSTER_MAX = 8;  // the portable cluster size
+
+// dynamic shared memory of a CTA of the cluster factor: the panel, b rows
+// of CTILE * ceil(n / CTILE) elements of es bytes
+__host__ __device__ inline size_t cluster_smem_bytes(int n, int es, int b) {
+  return (size_t)b * ((n + CTILE - 1) / CTILE) * CTILE * es;
+}
+
+// CTILE consecutive elements of shared memory (16-byte aligned), as 16-byte
+// loads and stores
+template <typename T>
+__device__ __forceinline__ void ld8(T (&v)[CTILE], const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const double2 d = reinterpret_cast<const double2*>(p)[i];
+      v[2 * i] = d.x;
+      v[2 * i + 1] = d.y;
+    }
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(GLOBAL_THREADS)
-chol_global_kernel(const T* __restrict__ gM, T* gR, int n) {
-  const size_t off = (size_t)blockIdx.x * n * n;
-  T* R = gR + off;
-  for (int e = threadIdx.x; e < n * n; e += blockDim.x) R[e] = gM[off + e];
-  __syncthreads();
-  chol_upper_inplace<8>(R, n);
+__device__ __forceinline__ void st8(T* p, const T (&v)[CTILE]) {
+  if constexpr (sizeof(T) == 4) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      reinterpret_cast<double2*>(p)[i] = make_double2(v[2 * i], v[2 * i + 1]);
+  }
 }
+
+// CTILE elements of a row of a matrix in global memory, from column col
+// on; `vec` where the row's first element is 16-byte aligned and all CTILE
+// lie in the row (16-byte loads, L2 only: other CTAs of the cluster wrote
+// them), else element by element, those past column n - 1 read as 0 and
+// not written
+template <typename T>
+__device__ __forceinline__ void gload8(T (&v)[CTILE], const T* row, int col,
+                                       int n, bool vec) {
+  if (vec && col + CTILE <= n) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(row + col));
+      const float4 b = __ldcg(reinterpret_cast<const float4*>(row + col) + 1);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const double2 d =
+            __ldcg(reinterpret_cast<const double2*>(row + col) + i);
+        v[2 * i] = d.x;
+        v[2 * i + 1] = d.y;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int y = 0; y < CTILE; ++y)
+    v[y] = col + y < n ? __ldcg(row + col + y) : T(0);
+}
+
+template <typename T>
+__device__ __forceinline__ void gstore8(T* row, int col, int n, bool vec,
+                                        const T (&v)[CTILE]) {
+  if (vec && col + CTILE <= n) {
+    st8(row + col, v);
+    return;
+  }
+#pragma unroll
+  for (int y = 0; y < CTILE; ++y)
+    if (col + y < n) row[col + y] = v[y];
+}
+
+// One matrix a cluster (grid B * C, cluster (C, 1, 1)).  R gets the upper
+// factor with a zero lower triangle.  PROF (a separate instantiation, as
+// K1's profiled one): thread 0 of each CTA adds up its cycles by section
+// (CLUSTER_SECTIONS in linalg/chol.py) into prof[8 blockIdx.x + s].
+template <typename T, bool PROF>
+__global__ void __launch_bounds__(CLUSTER_THREADS)
+chol_cluster_kernel(const T* __restrict__ gM, T* __restrict__ gR, int n,
+                    int b, long long* prof) {
+  extern __shared__ __align__(16) float smf[];
+  T* pan = reinterpret_cast<T*>(smf);  // the panel, pan[r * pw + column]
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nb = (n + CTILE - 1) / CTILE, pw = CTILE * nb;
+  const bool vec = n % (16 / (int)sizeof(T)) == 0;  // rows 16-byte aligned
+  const size_t off = (size_t)(blockIdx.x / C) * n * n;
+  const T* M = gM + off;
+  T* R = gR + off;
+  // f(tr, tc) for this rank's tiles of rows and columns q.. (tr <= tc),
+  // column by column, thread g taking the g-th, (g + nt)-th, ...
+  auto own_tiles = [&](int q, auto&& f) {
+    int tc = q + ((rank - q) % C + C) % C, first = 0;
+    for (int g = tid;; g += nt) {
+      while (tc < nb && g >= first + tc - q + 1) {
+        first += tc - q + 1;
+        tc += C;
+      }
+      if (tc >= nb) break;
+      f(q + g - first, tc);
+    }
+  };
+  long long cycles[5] = {0, 0, 0, 0, 0}, tick = 0;
+  if constexpr (PROF) tick = clock64();
+  auto stamp = [&](int section) {
+    if constexpr (PROF) {
+      const long long now = clock64();
+      cycles[section] += now - tick;
+      tick = now;
+    }
+  };
+
+  // The first panel reads M, and its trailing update writes R.
+  for (int p = 0; p < n; p += b) {
+    const int bb = min(b, n - p), q0 = p / CTILE;
+    const T* src = p == 0 ? M : R;  // where the trailing rows are
+    // the panel's rows, tile by tile (upper tiles only: the entries left of
+    // the diagonal are never read)
+    const int ncols = nb - q0;
+    for (int e = tid; e < bb * ncols; e += nt) {
+      const int r = e / ncols, tc = q0 + e % ncols, row = p + r;
+      if (tc < row / CTILE) continue;
+      T v[CTILE];
+      gload8(v, src + (size_t)row * n, CTILE * tc, n, vec);
+      st8(pan + r * pw + CTILE * tc, v);
+    }
+    __syncthreads();
+    stamp(0);
+    // the panel's rows, left-looking, one barrier a row: every thread forms
+    // the diagonal itself beside its first two entries.  Thread 0 stores a
+    // row's diagonal a row later, after the barrier, since every thread
+    // reads the unreduced one at the row's start.
+    T dprev = T(0);
+    for (int k = 0; k < bb; ++k) {
+      const int c = p + k;
+      if (tid == 0 && k > 0) pan[(k - 1) * pw + c - 1] = dprev;
+      const int l0 = c + 1 + tid, l1 = l0 + nt;
+      T akk = pan[k * pw + c];
+      T a0 = l0 < n ? pan[k * pw + l0] : T(0);
+      T a1 = l1 < n ? pan[k * pw + l1] : T(0);
+#pragma unroll 4
+      for (int i = 0; i < k; ++i) {
+        const T ri = pan[i * pw + c];
+        akk -= ri * ri;
+        if (l0 < n) a0 -= ri * pan[i * pw + l0];
+        if (l1 < n) a1 -= ri * pan[i * pw + l1];
+      }
+      const T inv = T(1) / qp_sqrt(akk);  // not rsqrt: that is approximate
+      if (l0 < n) pan[k * pw + l0] = a0 * inv;
+      if (l1 < n) pan[k * pw + l1] = a1 * inv;
+      for (int l = l1 + nt; l < n; l += nt) {
+        T acc = pan[k * pw + l];
+        for (int i = 0; i < k; ++i) acc -= pan[i * pw + c] * pan[i * pw + l];
+        pan[k * pw + l] = acc * inv;
+      }
+      dprev = akk * inv;
+      __syncthreads();
+    }
+    if (tid == 0) pan[(bb - 1) * pw + p + bb - 1] = dprev;
+    stamp(1);
+    // this rank's tiles of the trailing upper triangle
+    const int t0 = p + bb;
+    if (t0 < n) own_tiles(t0 / CTILE, [&](int tr, int tc) {
+      T acc[CTILE][CTILE];
+#pragma unroll
+      for (int x = 0; x < CTILE; ++x) {
+        const int row = CTILE * tr + x;
+        if (row < n) gload8(acc[x], src + (size_t)row * n, CTILE * tc, n, vec);
+      }
+      for (int r = 0; r < bb; ++r) {
+        T a[CTILE], cv[CTILE];
+        ld8(a, pan + r * pw + CTILE * tr);
+        ld8(cv, pan + r * pw + CTILE * tc);
+#pragma unroll
+        for (int x = 0; x < CTILE; ++x)
+#pragma unroll
+          for (int y = 0; y < CTILE; ++y) acc[x][y] -= a[x] * cv[y];
+      }
+#pragma unroll
+      for (int x = 0; x < CTILE; ++x) {
+        const int row = CTILE * tr + x;
+        if (row < n)
+          gstore8(R + (size_t)row * n, CTILE * tc, n, vec, acc[x]);
+      }
+    });
+    stamp(2);
+    // every rank's gather of this panel and update of its tiles are done
+    cl.sync();
+    stamp(3);
+    // the panel's rows of R, the cluster's threads in turn
+    for (int e = rank * nt + tid; e < bb * n; e += C * nt) {
+      const int r = e / n, col = e - r * n;
+      R[(size_t)(p + r) * n + col] = col >= p + r ? pan[r * pw + col] : T(0);
+    }
+    __syncthreads();  // before the next gather overwrites pan
+    stamp(4);
+  }
+  if constexpr (PROF)
+    if (tid == 0)
+      for (int section = 0; section < 5; ++section)
+        prof[8 * blockIdx.x + section] = cycles[section];
+}
+
+constexpr int GLOBAL_THREADS = 512;
 
 // R'R x = b for one matrix and one right-hand-side column (blockIdx.y),
 // R in global memory, the column in shared memory as two vectors of n:
@@ -322,13 +707,44 @@ int launch_chol_solve_entry(const T* R, const T* b, T* x, int B, int n,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_global(const T* M, T* R, int B, int n, void* stream) {
-  if (B == 0 || n == 0) return 0;
-  const int threads = n < GLOBAL_THREADS ? (n + 31) / 32 * 32
-                                         : GLOBAL_THREADS;
-  chol_global_kernel<T><<<B, threads, 0, (cudaStream_t)stream>>>(M, R, n);
+template <typename T, bool PROF>
+int launch_cluster(const T* M, T* R, int B, int n, int C, int b,
+                   cudaStream_t s, long long* prof) {
+  const int smem = (int)cluster_smem_bytes(n, sizeof(T), b);
+  auto kern = chol_cluster_kernel<T, PROF>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (unsigned)C);
+  cfg.blockDim = dim3(CLUSTER_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, M, R, n, b, prof);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves nothing to report later
+    return (int)e;
+  }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_global(const T* M, T* R, int B, int n, int C, int b, void* stream,
+                  long long* prof) {
+  if (C < 1 || C > CLUSTER_MAX || b < CTILE || b % CTILE ||
+      cluster_smem_bytes(n, sizeof(T), b) > 232448)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return prof ? launch_cluster<T, true>(M, R, B, n, C, b, s, prof)
+              : launch_cluster<T, false>(M, R, B, n, C, b, s, nullptr);
 }
 
 template <typename T>
@@ -355,11 +771,16 @@ extern "C" int qp_chol(const void* M, void* R, int B, int n, int f64,
              : launch_chol((const float*)M, (float*)R, B, n, stream);
 }
 
-// the global-memory plan
+// the global-memory plan: a cluster of `cluster` CTAs a matrix, panels of
+// b rows, the trailing triangle in R; prof (8 B cluster int64s, or null)
+// takes the cycle counters of the profiled instantiation
 extern "C" int qp_chol_global(const void* M, void* R, int B, int n, int f64,
-                              void* stream) {
-  return f64 ? launch_global((const double*)M, (double*)R, B, n, stream)
-             : launch_global((const float*)M, (float*)R, B, n, stream);
+                              int cluster, int b, void* prof, void* stream) {
+  long long* pr = (long long*)prof;
+  return f64 ? launch_global((const double*)M, (double*)R, B, n, cluster, b,
+                             stream, pr)
+             : launch_global((const float*)M, (float*)R, B, n, cluster, b,
+                             stream, pr);
 }
 
 extern "C" int qp_chol_solve_global(const void* R, const void* b, void* x,
@@ -371,22 +792,37 @@ extern "C" int qp_chol_solve_global(const void* R, const void* b, void* x,
                                    (float*)x, B, n, k, stream);
 }
 
-// The shared-memory solve, `cols` right-hand sides per block; `panel`
-// picks the blocked kernel (f32, n a multiple of PANEL, cols 32 or 64, R
-// 16-byte aligned), else the entry-by-entry kernel with cols <= 64.
+// The shared-memory solve, `cols` right-hand sides per block.  kind 1:
+// the blocked kernel (f32, n a multiple of PANEL, cols 32 or 64, R 16-byte
+// aligned); kind 2: one warp a matrix (f64, k = 1, n even, R 16-byte
+// aligned); kind 0: the entry-by-entry kernel with cols <= 64.
 extern "C" int qp_chol_solve(const void* R, const void* b, void* x, int B,
-                             int n, int k, int cols, int panel, int f64,
+                             int n, int k, int cols, int kind, int f64,
                              void* stream) {
   if (B == 0 || n == 0 || k == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (f64) {
-    if (panel) return (int)cudaErrorInvalidValue;
+    if (kind == 2) {
+      if (k != 1 || n % 2 || n > 32 * WARP_E)
+        return (int)cudaErrorInvalidValue;
+      const double *Rd = (const double*)R, *bd = (const double*)b;
+      double* xd = (double*)x;
+      switch ((n + 31) / 32) {
+        case 1: return launch_solve_warp<1>(Rd, bd, xd, B, n, s);
+        case 2: return launch_solve_warp<2>(Rd, bd, xd, B, n, s);
+        case 3: return launch_solve_warp<3>(Rd, bd, xd, B, n, s);
+        case 4: return launch_solve_warp<4>(Rd, bd, xd, B, n, s);
+        case 5: return launch_solve_warp<5>(Rd, bd, xd, B, n, s);
+        default: return launch_solve_warp<6>(Rd, bd, xd, B, n, s);
+      }
+    }
+    if (kind) return (int)cudaErrorInvalidValue;
     return launch_chol_solve_entry((const double*)R, (const double*)b,
                                    (double*)x, B, n, k, cols, s);
   }
   const float *Rf = (const float*)R, *bf = (const float*)b;
   float* xf = (float*)x;
-  if (panel) {
+  if (kind == 1) {
     const dim3 grid(B, (k + cols - 1) / cols);
     const int smem = (int)(panel_smem_floats(n, cols) * sizeof(float));
     cudaError_t e = cudaFuncSetAttribute(
@@ -398,5 +834,6 @@ extern "C" int qp_chol_solve(const void* R, const void* b, void* x, int B,
                                                         cols);
     return (int)cudaGetLastError();
   }
+  if (kind) return (int)cudaErrorInvalidValue;
   return launch_chol_solve_entry(Rf, bf, xf, B, n, k, cols, s);
 }

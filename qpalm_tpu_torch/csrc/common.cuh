@@ -29,20 +29,17 @@ static __device__ __forceinline__ double qp_sqrt(double v) { return sqrt(v); }
 // R[i][k] R[i][l] for i = 0, 1, ..., k - 1 in turn, each product and each
 // difference rounded, then times inv = 1 / sqrt of the pivot so reduced
 // (not rsqrt: that is approximate), the diagonal pivot * inv.  M is n x n,
-// row-major, SPD, in shared memory (or in global memory, which the
-// global-memory plan of chol.cu passes); on return it holds R (R'R = M)
-// with a zero lower triangle.  T is float or double.  Every thread of the
-// block calls it.  Row by row, left-looking: thread t forms entry
-// (k, k + t) from R's finished rows, with the pivot's sum beside its own,
-// so a row's subtractions are chains in registers, not steps between
-// barriers: one barrier a row, and one before the first.  A row's pivot
-// is read a row ahead, since its diagonal is overwritten while the row is
-// formed.  UNROLL > 1 unrolls each chain by that much (the global plan,
-// whose loads come from L2); it changes no operation's order.  UNROLL = 1
-// leaves the unrolling to the compiler, in a loop of its own: one loop
-// under `#pragma unroll UNROLL` made K2a 55% and the on-chip K1 27% slower
-// at UNROLL = 1, 2% and 4% at 4 (tools/stream_ab.py, PERF.md).
-template <int UNROLL = 1, typename T>
+// row-major, SPD, in shared memory; on return it holds R (R'R = M) with a
+// zero lower triangle.  T is float or double.  Every thread of the block
+// calls it.  Row by row, left-looking: thread t forms entry (k, k + t)
+// from R's finished rows, with the pivot's sum beside its own, so a row's
+// subtractions are chains in registers, not steps between barriers: one
+// barrier a row, and one before the first.  A row's pivot is read a row
+// ahead, since its diagonal is overwritten while the row is formed.  The
+// unrolling is the compiler's: one loop under `#pragma unroll UNROLL` (for
+// a global-memory plan since replaced) made K2a 55% and the on-chip K1 27%
+// slower at UNROLL = 1 (tools/stream_ab.py, PERF.md).
+template <typename T>
 static __device__ void chol_upper_inplace(T* M, int n) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
@@ -55,19 +52,10 @@ static __device__ void chol_upper_inplace(T* M, int n) {
     const T mnext = k + 1 < n ? rk[n + k + 1] : T(0);
     for (int l = k + tid; l < n; l += nt) {
       T akk = mkk, v = rk[l];
-      if constexpr (UNROLL > 1) {
-#pragma unroll UNROLL
-        for (int i = 0; i < k; ++i) {
-          const T a = M[i * n + k];
-          akk -= a * a;
-          v -= a * M[i * n + l];
-        }
-      } else {
-        for (int i = 0; i < k; ++i) {
-          const T a = M[i * n + k];
-          akk -= a * a;
-          v -= a * M[i * n + l];
-        }
+      for (int i = 0; i < k; ++i) {
+        const T a = M[i * n + k];
+        akk -= a * a;
+        v -= a * M[i * n + l];
       }
       const T inv = T(1) / qp_sqrt(akk);
       rk[l] = l == k ? akk * inv : v * inv;

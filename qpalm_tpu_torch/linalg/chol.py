@@ -13,8 +13,10 @@ Both take float32 and float64.  Dispatch: a CPU tensor goes to the plain
 twin; a CUDA tensor goes to a kernel, in the memory plan `factor_plan` /
 `solve_plan` pick by n, dtype and SMEM_LIMIT: the matrix in one block's
 shared memory where it fits (f32 n <= 241, f64 n <= 170 for the factor),
-else in global memory, in the same order of operations.  An input that no
-plan takes raises; nothing falls back to a library call or to the twin.
+else in global memory, in the same order of operations: past shared
+memory the factor runs right-looking in panels across a thread block
+cluster, in the shape `global_plan` picks.  An input that no plan takes
+raises; nothing falls back to a library call or to the twin.
 Each wrapper counts its launches in `.launches`, and `KERNEL_LAUNCHES`
 counts them by kernel (the names of KERNELS).
 """
@@ -31,6 +33,11 @@ from .._build import check_launch, kernels
 SMEM_LIMIT = 232448
 _SOLVE_COLS = 64  # right-hand-side columns per block of the solve kernel
 PANEL = 8  # rows of a panel of the blocked solve kernel (csrc/chol.cu)
+# the cluster factor (csrc/chol.cu, chol_cluster_kernel): tiles of the
+# trailing triangle, threads a CTA, the largest cluster (the portable size)
+CLUSTER_TILE = 8
+CLUSTER_THREADS = 256
+CLUSTER_MAX = 8
 
 
 # launches by kernel: (factor or solve, plan, dtype) -> name
@@ -41,12 +48,14 @@ KERNELS = {
     ("factor", "global", torch.float64): "chol_global_f64",
     ("solve", "smem", torch.float32): "chol_solve",
     ("solve", "smem", torch.float64): "chol_solve_f64",
+    ("solve", "warp", torch.float64): "chol_solve_warp_f64",
     ("solve", "global", torch.float32): "chol_solve_global",
     ("solve", "global", torch.float64): "chol_solve_global_f64",
 }
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
 _ESIZE = {torch.float32: 4, torch.float64: 8}
+_SOLVE_KINDS = {"entry": 0, "panel": 1, "warp": 2}  # qp_chol_solve's kind
 
 
 def panel_smem_bytes(n: int, cols: int) -> int:
@@ -56,11 +65,49 @@ def panel_smem_bytes(n: int, cols: int) -> int:
     return 4 * (n * n + (n + cols) * (n + 4)) + 16
 
 
+WARP_N_MAX = 192  # the f64 one-vector solve: 6 entries a lane
+
+
+def warp_smem_bytes(n: int) -> int:
+    """Shared memory of the f64 one-vector solve (csrc/chol.cu,
+    chol_solve_warp_kernel): R's n rows of doubles, n + 2 apart where n is
+    a multiple of 4 (else n), and two 8-byte mbarriers."""
+    return 8 * n * (n + 2 if n % 4 == 0 else n) + 16
+
+
 def _esize(dtype, name) -> int:
     if dtype not in _ESIZE:
         raise ValueError(f"{name}: no kernel takes {dtype} (float32 and "
                          "float64 only)")
     return _ESIZE[dtype]
+
+
+def global_smem_bytes(n: int, dtype, b: int) -> int:
+    """Dynamic shared memory of a CTA of the cluster factor (csrc/chol.cu,
+    cluster_smem_bytes): the panel, b rows of CLUSTER_TILE * ceil(n /
+    CLUSTER_TILE) elements."""
+    es = _esize(dtype, "cholesky_upper")
+    return es * b * -(-n // CLUSTER_TILE) * CLUSTER_TILE
+
+
+GlobalPlan = collections.namedtuple("GlobalPlan", "cluster b")
+
+
+def global_plan(B: int, n: int, dtype, sms: int = 132) -> GlobalPlan:
+    """The cluster factor's shape for B matrices n x n past shared memory:
+    the largest cluster C of 1, 2, 4 or 8 CTAs a matrix with B C <= sms
+    (C = 1 past sms matrices), so that every matrix runs at once, one CTA
+    an SM, and panels of 32 rows (16 or 8 where 32 do not fit a CTA's
+    shared memory).  At the general loop's B = 64 that is 2 CTAs a matrix.
+    Raises ValueError where not even a panel of 8 rows fits a CTA (f32 n
+    > 7264, f64 n > 3632)."""
+    C = max(c for c in (1, 2, 4, CLUSTER_MAX) if c == 1 or B * c <= sms)
+    for b in (32, 16, 8):
+        if global_smem_bytes(n, dtype, b) <= SMEM_LIMIT:
+            return GlobalPlan(C, b)
+    raise ValueError(f"cholesky_upper: n={n} {dtype} fits no plan (a panel "
+                     f"of 8 rows takes {global_smem_bytes(n, dtype, 8)} "
+                     f"bytes of shared memory, over {SMEM_LIMIT})")
 
 
 def factor_plan(n: int, dtype) -> str:
@@ -74,14 +121,19 @@ def factor_plan(n: int, dtype) -> str:
 def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
     """The solve's plan and right-hand-side columns a block, (plan, cols):
     "panel" (f32, n a multiple of PANEL, 32 or 64 columns: 32 where 64
-    would leave some of the card's `sms` multiprocessors idle), "entry"
-    (R and up to 64 columns in shared memory) or "global" (one column a
-    block); raises ValueError where none takes the input."""
+    would leave some of the card's `sms` multiprocessors idle), "warp"
+    (f64, one right-hand side, n even: a warp a matrix, R in shared
+    memory), "entry" (R and up to 64 columns in shared memory: f64 with
+    several columns or odd n, f32 n not a multiple of PANEL) or "global"
+    (one column a block); raises ValueError where none takes the input."""
     es = _esize(dtype, "cholesky_solve")
     if dtype == torch.float32 and n % PANEL == 0:
         cols = 64 if B * -(-k // 64) >= sms else 32
         if panel_smem_bytes(n, cols) <= SMEM_LIMIT:
             return "panel", cols
+    if (dtype == torch.float64 and k == 1 and n % 2 == 0
+            and n <= WARP_N_MAX and warp_smem_bytes(n) <= SMEM_LIMIT):
+        return "warp", 1
     cols = min(k, _SOLVE_COLS)
     if (n * n + n * cols) * es <= SMEM_LIMIT:
         return "entry", cols
@@ -140,6 +192,24 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+# the cluster factor's sections, by its cycle counters
+CLUSTER_SECTIONS = ("gather", "panel", "trailing", "cluster_wait", "write")
+
+
+def _launch_global(M: torch.Tensor, R: torch.Tensor, plan: GlobalPlan,
+                   prof: torch.Tensor | None = None) -> int:
+    """Launch the cluster factor on contiguous CUDA M and R in the shape
+    `plan`; returns the C entry point's error code.  prof, an int64 CUDA
+    tensor of (B * plan.cluster, 8), runs the profiled instantiation, which
+    takes each CTA's cycles by section (CLUSTER_SECTIONS, counted by its
+    thread 0)."""
+    B, n, _ = M.shape
+    return kernels().qp_chol_global(
+        M.data_ptr(), R.data_ptr(), B, n, int(M.dtype == torch.float64),
+        plan.cluster, plan.b, None if prof is None else prof.data_ptr(),
+        _stream())
+
+
 def cholesky_upper(M: torch.Tensor) -> torch.Tensor:
     """Upper Cholesky factor R (R'R = M) of a batch of SPD matrices."""
     if M.device.type == "cpu":
@@ -150,13 +220,21 @@ def cholesky_upper(M: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"cholesky_upper: square matrices needed, got "
                          f"{tuple(M.shape)}")
     plan = factor_plan(n, M.dtype)
-    f64 = M.dtype == torch.float64
+    gplan = None
+    if plan == "global":
+        sms = torch.cuda.get_device_properties(
+            M.device).multi_processor_count
+        gplan = global_plan(B, n, M.dtype, sms)
     M = M.contiguous()
+    if gplan is not None and M.data_ptr() % 16:  # read in 16-byte loads
+        M = M.clone()
     R = torch.empty_like(M)
     with torch.cuda.device(M.device):
-        lib = kernels()
-        fn = lib.qp_chol_global if plan == "global" else lib.qp_chol
-        rc = fn(M.data_ptr(), R.data_ptr(), B, n, int(f64), _stream())
+        if gplan is None:
+            rc = kernels().qp_chol(M.data_ptr(), R.data_ptr(), B, n,
+                                   int(M.dtype == torch.float64), _stream())
+        else:
+            rc = _launch_global(M, R, gplan)
     check_launch("qp_chol", rc)
     cholesky_upper.launches += 1
     KERNEL_LAUNCHES[KERNELS["factor", plan, M.dtype]] += 1
@@ -183,7 +261,7 @@ def cholesky_solve(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     plan, cols = solve_plan(B, n, k, R.dtype, sms)
     R = R.contiguous()
     b = b.contiguous()
-    if plan == "panel" and R.data_ptr() % 16:  # R is read as float4
+    if plan in ("panel", "warp") and R.data_ptr() % 16:  # bulk copy, float4
         R = R.clone()
     x = torch.empty_like(b)
     with torch.cuda.device(R.device):
@@ -192,12 +270,12 @@ def cholesky_solve(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if plan == "global":
             rc = lib.qp_chol_solve_global(*ptrs, int(f64), _stream())
         else:
-            rc = lib.qp_chol_solve(*ptrs, cols, int(plan == "panel"),
+            rc = lib.qp_chol_solve(*ptrs, cols, _SOLVE_KINDS[plan],
                                    int(f64), _stream())
     check_launch("qp_chol_solve", rc)
     cholesky_solve.launches += 1
-    KERNEL_LAUNCHES[KERNELS["solve", "global" if plan == "global" else
-                            "smem", R.dtype]] += 1
+    KERNEL_LAUNCHES[KERNELS["solve", plan if plan in ("global", "warp")
+                            else "smem", R.dtype]] += 1
     return x
 
 

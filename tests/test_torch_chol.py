@@ -200,14 +200,17 @@ def test_factor_plan_selection(n, dtype, plan):
     (64, 240, 1, torch.float32, ("entry", 1)),
     (64, 240, 64, torch.float32, ("global", 1)),
     (64, 480, 1, torch.float32, ("global", 1)),
-    (512, 64, 1, torch.float64, ("entry", 1)),
+    (512, 64, 1, torch.float64, ("warp", 1)),
     (512, 64, 64, torch.float64, ("entry", 64)),
+    (64, 168, 1, torch.float64, ("warp", 1)),
     (64, 169, 1, torch.float64, ("entry", 1)),
-    (64, 170, 1, torch.float64, ("global", 1)),
+    (64, 170, 1, torch.float64, ("warp", 1)),
+    (64, 171, 1, torch.float64, ("global", 1)),
     (128, 224, 1, torch.float64, ("global", 1))])
 def test_solve_plan_selection(B, n, k, dtype, plan):
     """The solve: the blocked kernel for f32 n a multiple of 8 whose plan
-    fits, else R and the columns in shared memory, else global memory."""
+    fits, a warp a matrix for f64 one-vector solves of even n that fit,
+    else R and the columns in shared memory, else global memory."""
     assert chol.solve_plan(B, n, k, dtype, sms=132) == plan
 
 
@@ -267,10 +270,16 @@ def test_twins_at_float64(n):
     (37, 64, torch.float64), (9, 170, torch.float64),
     (9, 171, torch.float64), (9, 224, torch.float64),
     (9, 242, torch.float32), (5, 480, torch.float32), (3, 7, torch.float64),
-    (3, 300, torch.float64)])
+    (3, 300, torch.float64),
+    (1, 243, torch.float32), (3, 301, torch.float32),
+    (64, 479, torch.float32), (200, 481, torch.float32),
+    (200, 171, torch.float64), (64, 173, torch.float64),
+    (1, 300, torch.float64), (3, 480, torch.float64),
+    (64, 480, torch.float64), (200, 224, torch.float64)])
 def test_cuda_factor_plans_are_bit_identical_to_plain(B, n, dtype):
-    """K2a's f64 instantiation and its global-memory plan keep every
-    entry's arithmetic of the twin: bit for bit."""
+    """K2a's f64 instantiation and its global-memory plan (the cluster
+    factor, ragged tiles and last panels, one cluster and several waves)
+    keep every entry's arithmetic of the twin: bit for bit."""
     dev = _cuda()
     np_dt = np.float64 if dtype == torch.float64 else np.float32
     M = torch.from_numpy(_spd_batch(B, n, seed=22, dtype=np_dt)).to(dev)
@@ -288,10 +297,13 @@ def test_cuda_factor_plans_are_bit_identical_to_plain(B, n, dtype):
     (9, 169, 0, torch.float64), (9, 170, 0, torch.float64),
     (9, 224, 3, torch.float64), (9, 240, 64, torch.float32),
     (5, 480, 0, torch.float32), (3, 7, 5, torch.float64),
-    (3, 300, 2, torch.float64)])
+    (3, 300, 2, torch.float64), (512, 64, 0, torch.float64),
+    (1, 2, 0, torch.float64), (3, 168, 0, torch.float64),
+    (200, 100, 0, torch.float64), (64, 9, 0, torch.float64)])
 def test_cuda_solve_plans_are_bit_identical_to_plain(B, n, k, dtype):
-    """K2b's f64 instantiation and its global plan against the twin, bit
-    for bit; k = 0 is one vector."""
+    """K2b's f64 instantiation (a warp a matrix for one vector of even n)
+    and its global plan against the twin, bit for bit; k = 0 is one
+    vector."""
     dev = _cuda()
     np_dt = np.float64 if dtype == torch.float64 else np.float32
     R = cholesky_upper_plain(torch.from_numpy(

@@ -27,8 +27,9 @@ right-hand sides, as the polish calls it, at (512, 64, 64) and at the
 second round's (64, 64, 64), each the mean of 100 launches by CUDA events
 after 0.3 s of warm-up, queued behind a device sleep so that the host's
 time per call is not counted, from the factor of chip_smoke.py phase 3's
-SPD batch.  `--kernel chol`: K2a (`linalg.chol.cholesky_upper`) on that
-batch, timed the same way.
+SPD batch, and the f64 solve of one vector a matrix at (512, 64).
+`--kernel chol`: K2a (`linalg.chol.cholesky_upper`) on that batch, and the
+cluster factor at (64, 480, 480) in f32 and f64, timed the same way.
 """
 
 import argparse
@@ -101,6 +102,21 @@ if sys.argv[2] in ("chol", "chol_solve"):
             continue
         eye = torch.eye(64, device="cuda").expand(B, 64, 64).contiguous()
         runs[f"({B}, 64, 64)"] = queued(lambda: chol.cholesky_solve(Rb, eye))
+    if sys.argv[2] == "chol":
+        # the general loop's factors past shared memory (randomQP n=480)
+        G = np.random.default_rng(1).standard_normal((64, 480, 480))
+        for dt in (np.float32, np.float64):
+            Mw = torch.from_numpy((G @ np.transpose(G, (0, 2, 1))
+                                   + 480 * np.eye(480)).astype(dt)).cuda()
+            runs[f"{dt.__name__} (64, 480, 480)"] = queued(
+                lambda: chol.cholesky_upper(Mw))
+    else:
+        # the general loop's f64 solve, one vector a matrix
+        M64, b64 = M.double(), torch.from_numpy(
+            np.random.default_rng(2).standard_normal((512, 64))).cuda()
+        R64 = chol.cholesky_upper(M64)
+        runs["float64 (512, 64)"] = queued(
+            lambda: chol.cholesky_solve(R64, b64))
 elif sys.argv[2] == "stream":
     from qpalm_tpu_torch import sweep
     s = sweep.S32
