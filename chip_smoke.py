@@ -70,10 +70,11 @@ Phases, each asserting, any failure exiting non-zero:
      global-memory plan (the cluster factor; the plan it picks printed) at
      f64 (128, 224, 224), f64 and f32 (64, 480, 480), the ragged f64
      (64, 477, 477) and f32 (37, 483, 483), and the f32 one-vector panel
-     solve at (512, 64), factor and one-vector solve, bit for bit against
-     the twins, timed beside torch.linalg.cholesky and torch.cholesky_solve
-     (each kernels-line row at the shape of the run whose launches it
-     counts);
+     solve at (512, 64), factor and one-vector solve, then the global
+     solve's identity right-hand sides at f32 (64, 480, 480), bit for bit
+     against the twins, timed beside torch.linalg.cholesky and
+     torch.cholesky_solve (each kernels-line row at the shape of the run
+     whose launches it counts);
      the headline through the general loop at bench.py's f32 settings
      (use_fused="never", statuses and counts against phase 4's K1), at the
      default Settings() (f64, max_refine=3, eps 1e-4: every lane solved, x
@@ -141,29 +142,35 @@ TL_EPS = 1e-5  # phase 14's time-limited solve: some lanes floor at f32
 # 1e-3 and an eps 1e-6 solve at 1e-4
 DEFAULT_X_BAR, TIGHT_X_BAR = 1e-3, 1e-4
 # phase 14's K2 comparisons: (label, B, n, dtype, the plans of the factor
-# and of the one-vector solve, and the kernels-line names of the factor and
-# of the solve at this shape).  Each kernels-line row is timed at the shape
-# of the phase-14 run whose launches it counts: the headline (512, 64) at
+# and of the solve, the kernels-line names of the factor and of the solve
+# at this shape, and whether the right-hand sides are the identity, else
+# one vector a matrix).  Each kernels-line row is timed at the shape of the
+# phase-14 run whose launches it counts: the headline (512, 64) at
 # Settings() for f64 in shared memory and at f32 for the one-vector panel
-# solve, randomQP n=480 (64 problems) at f32 and f64 for the global plan.
-# f64 (128, 224) and the ragged shapes (n not a multiple of the cluster
-# factor's 8-row tiles, a ragged last panel) are held to the twins without
-# a row of their own.
+# solve, randomQP n=480 (64 problems) at f32 and f64 for the global plan;
+# the identity at f32 (64, 480, 480), the device polish's explicit inverse
+# at that n, counts the f32 row's launches (none: its polish runs on the
+# host).  f64 (128, 224) and the ragged shapes (n not a multiple of the cluster factor's 8-row
+# tiles, a ragged last panel, rows of R not 16-byte aligned) are held to
+# the twins without a row of their own.  Every shape's matrices come from
+# one stream, so a shape is appended, never inserted.
 K2_SHAPES = (
     ("f64 (512, 64)", 512, 64, "float64", ("smem", "warp"),
-     ("chol_f64", "chol_solve_f64")),
+     ("chol_f64", "chol_solve_f64"), False),
     ("f64 (128, 224)", 128, 224, "float64", ("global", "global"),
-     (None, None)),
+     (None, None), False),
     ("f64 (64, 480)", 64, 480, "float64", ("global", "global"),
-     ("chol_global_f64", "chol_solve_global_f64")),
+     ("chol_global_f64", "chol_solve_global_f64"), False),
     ("f32 (64, 480)", 64, 480, "float32", ("global", "global"),
-     ("chol_global", "chol_solve_global")),
+     ("chol_global", "chol_solve_global"), False),
     ("f32 (512, 64)", 512, 64, "float32", ("smem", "panel"),
-     (None, "chol_solve_vec")),
+     (None, "chol_solve_vec"), False),
     ("f64 (64, 477)", 64, 477, "float64", ("global", "global"),
-     (None, None)),
+     (None, None), False),
     ("f32 (37, 483)", 37, 483, "float32", ("global", "global"),
-     (None, None)))
+     (None, None), False),
+    ("f32 (64, 480, 480) identity", 64, 480, "float32", ("global", "global"),
+     (None, "chol_solve_global_cols"), True))
 # phase 14: lanes of the headline at Settings() held on the card to the
 # port's own general loop on the CPU, at the CPU tests' f64 bar
 CPU_LANES = 32
@@ -780,13 +787,15 @@ def phase_bench(counters):
 
 
 def k2_against_twins(chol, M, b, label):
-    """K2a on M (B, n, n) and K2b on one vector a matrix b (B, n), held bit
-    for bit against the twins and timed beside the library calls that
-    compute the same functions.  Returns the numbers of the factor and of
-    the solve for the kernels line."""
+    """K2a on M (B, n, n) and K2b on b, one vector a matrix (B, n) or k
+    columns (B, n, k), held bit for bit against the twins and timed beside
+    the library calls that compute the same functions.  Returns the
+    numbers of the factor and of the solve for the kernels line."""
     import torch
 
     nb, n, _ = M.shape
+    b3 = b[..., None] if b.dim() == 2 else b
+    k = b3.shape[2]
     R = chol.cholesky_upper(M)
     x = chol.cholesky_solve(R, b)
     Rp = chol.cholesky_upper_plain(M)
@@ -796,14 +805,12 @@ def k2_against_twins(chol, M, b, label):
             f"{int((R != Rp).sum())} entries differ")
     require(torch.equal(x, xp), f"{label}: solve vs plain, "
             f"{int((x != xp).sum())} entries differ")
-    M64, x64 = M.double(), x.double()
-    res = ((M64 @ x64[..., None])[..., 0] - b.double()).abs().max().item() \
-        / M64.abs().max().item()
+    res = (M.double() @ x.double().reshape(b3.shape)
+           - b3.double()).abs().max().item() / M.double().abs().max().item()
     require(res < (1e-12 if M.dtype == torch.float64 else 1e-3),
             f"{label}: solve residual {res:.3e}")
     es = M.element_size()
     peak = F64_PEAK if M.dtype == torch.float64 else F32_PEAK
-    b3 = b[..., None]
     fac = dict(max_abs_err=0.0, ms=cuda_ms(lambda: chol.cholesky_upper(M), 5),
                plain_ms=cuda_ms(lambda: chol.cholesky_upper_plain(M), 1),
                library_ms=cuda_ms(lambda: torch.linalg.cholesky(
@@ -814,7 +821,8 @@ def k2_against_twins(chol, M, b, label):
                plain_ms=cuda_ms(lambda: chol.cholesky_solve_plain(R, b), 1),
                library_ms=cuda_ms(lambda: torch.cholesky_solve(
                    b3, R, upper=True), 5),
-               **bound(2 * nb * n * n, es * nb * (n * n + 2 * n), peak))
+               **bound(2 * nb * n * n * k, es * nb * (n * n + 2 * n * k),
+                       peak))
     say(f"[general K2 {label}] factor and solve bit-identical to the twins, "
         f"solve residual {res:.1e}; factor {fac['ms']:.4f} ms (bound "
         f"{fac['bound_ms']:.4f}, plain {fac['plain_ms']:.2f}, "
@@ -911,13 +919,17 @@ def phase_general(dev, probs, s32, k_np, x_cert, ok_cert):
     numbers, launches = {}, {}
     rng = np.random.default_rng(14)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for label, nb, n, dt, want, rows in K2_SHAPES:
+    for label, nb, n, dt, want, rows, identity in K2_SHAPES:
         G = rng.standard_normal((nb, n, n)).astype(dt)
         M = torch.from_numpy(G @ np.transpose(G, (0, 2, 1))
                              + n * np.eye(n, dtype=G.dtype)).to(dev)
         b = torch.from_numpy(rng.standard_normal((nb, n)).astype(dt)).to(dev)
+        if identity:
+            b = torch.eye(n, dtype=M.dtype, device=dev).expand(
+                nb, n, n).contiguous()
         plans = (chol.factor_plan(n, M.dtype),
-                 chol.solve_plan(nb, n, 1, M.dtype, sms)[0])
+                 chol.solve_plan(nb, n, n if identity else 1, M.dtype,
+                                 sms)[0])
         require(plans == want, f"K2 {label}: plans {plans}, not {want}")
         if plans[0] == "global":
             gp = chol.global_plan(nb, n, M.dtype, sms)
@@ -987,6 +999,8 @@ def phase_general(dev, probs, s32, k_np, x_cert, ok_cert):
             f"{label}: {row['referee_disagreements']} referee disagreements")
     launches["chol_global"] = lc.get("chol_global", 0)
     launches["chol_solve_global"] = lc.get("chol_solve_global", 0)
+    # the row's polish runs on the host: no identity solve on the card
+    launches["chol_solve_global_cols"] = lc.get("chol_solve_global_cols", 0)
     wide = sweep.row_problems("randomQP", WIDE_N, batch=WIDE_B)
     res, _, lc = general_solve(dev, wide, Settings(),
                                f"randomQP n={WIDE_N} Settings()")
@@ -1116,6 +1130,11 @@ def main():
     for entry, (regs, st, ld) in ptxas_summary(log).items():
         for key, label in KERNEL_NAMES:
             if key in entry:
+                hit = re.search(r"global_kernelI([fd])Li(\d+)E", entry)
+                if hit:  # the global solve, an instantiation an E
+                    label += (f" {'f32' if hit[1] == 'f' else 'f64'}, E = "
+                              f"{hit[2]}")
+                    require(st == 0 and ld == 0, f"{label} spills")
                 say(f"[build] {label}: {regs} registers, {st} bytes spill "
                     f"stores, {ld} bytes spill loads")
 
@@ -1351,6 +1370,8 @@ def main():
            f"qpalm_tpu/linalg/pallas_chol.py:{98 if not part else 123}")
           for plan in ("f64", "global", "global_f64")
           for part in ("", "_solve")),
+        ("chol_solve_global_cols", "chol_solve_global_cols",
+         csrc + "chol.cu", "qpalm_tpu/linalg/pallas_chol.py:123"),
         ("probe_scratch", "probe_scratch", csrc + "probe_stream.cu",
          "scripts/probe_mosaic_scratch.py:83"),
         ("probe_assembly", "probe_assembly", csrc + "probe_stream.cu",

@@ -48,7 +48,11 @@
 // memory (f32 n > 241, f64 n > 170) the factor runs right-looking in
 // panels across a thread block cluster (chol_cluster_kernel) and the solve
 // keeps R in global memory, one block a column (chol_solve_global_kernel),
-// in the same order of operations.  linalg/chol.py picks the plan.
+// in the same order of operations: each thread loads its own entries of R
+// for step s + D at step s, into a ring of registers, so that no load of R
+// lies on the chain of 2n dependent steps, and R's diagonal sits in shared
+// memory beside the column.  linalg/chol.py picks the plan (and the
+// global solve's threads and entries a thread, global_solve_shape).
 //
 // Entry points (plain C, for ctypes) launch on the given stream, allocate
 // nothing, do not synchronise, and return cudaGetLastError().
@@ -645,42 +649,126 @@ chol_cluster_kernel(const T* __restrict__ gM, T* __restrict__ gR, int n,
         prof[8 * blockIdx.x + section] = cycles[section];
 }
 
-constexpr int GLOBAL_THREADS = 512;
+// The global solve's shape, picked by linalg/chol.py:global_solve_shape
+// and passed in: nt threads a block (a multiple of 32, at most
+// GS_THREADS_MAX) and E entries a thread (a power of two, at most
+// GS_E_MAX).  The threads are picked for GS_ENTRY_BYTES of R a thread a
+// step (2 f32 entries, 1 f64), so E is larger only at GS_THREADS_MAX
+// threads, which the kernel then takes as a constant.  The ring's depth D
+// follows from E: GS_RING_BYTES of R a thread, 1 to GS_DEPTH_MAX entries
+// deep (deeper rings spilled or ran slower, PERF.md).
+constexpr int GS_THREADS_MAX = 512, GS_E_MAX = 32, GS_ENTRY_BYTES = 8;
+constexpr int GS_RING_BYTES = 64, GS_DEPTH_MAX = 8;
+
+template <typename T>
+__host__ __device__ constexpr int gs_depth(int E) {
+  const int d = GS_RING_BYTES / (E * (int)sizeof(T));
+  return d < 1 ? 1 : d > GS_DEPTH_MAX ? GS_DEPTH_MAX : d;
+}
+
+// n / d rounded as `/` is, a zero n by a finite nonzero d without dividing
+// (div_rn above; the polish's identity right-hand sides give zero
+// numerators): the zero of their signs is their product
+__device__ __forceinline__ double div_rn(double n, double d) {
+  const bool zero = n == 0.0 && fabs(d) > 0.0 && fabs(d) < INFINITY;
+  const double q = __ddiv_rn(zero ? 1.0 : n, d);
+  return zero ? n * d : q;
+}
 
 // R'R x = b for one matrix and one right-hand-side column (blockIdx.y),
-// R in global memory, the column in shared memory as two vectors of n:
-// w, the column being reduced, and y, each step's finished value.  The
-// threads share each step's entries, one barrier a step.  Forward in
-// saxpy form (y_j = w_j / R_jj, then w_l -= y_j R_jl for l > j), backward
-// in column form on y (x_l = y_l / R_ll, then y_r -= R_rl x_l for r < l,
-// x_l into w): the order of linalg/chol.py:cholesky_solve_plain, each
-// product and each difference rounded.
-template <typename T>
-__global__ void __launch_bounds__(GLOBAL_THREADS)
+// R in global memory: the 2n dependent steps of linalg/chol.py:
+// cholesky_solve_plain, forward in saxpy form (y_j = w_j / R_jj, then w_l
+// -= y_j R_jl for l > j), backward in column form (x_l = y_l / R_ll, then
+// y_r -= R_rl x_l for r < l), each product and each difference rounded.
+// One barrier a step.  The column lives in shared memory (v: w, then y,
+// then x), R's diagonal beside it, both loaded once.  Thread t owns entries
+// t, t + nt, ..., E of them: only it writes them, and the others read
+// entry j at step j.  A step's quotient goes into its entry a step later
+// (every thread holds it), so that no thread overwrites an entry another
+// may still be reading.  R's reads come in a fixed order (row j forward,
+// column l backward), so each thread loads the entries of step s + D at
+// step s, its own only, into a ring of D registers an entry, and no load
+// of R lies on the chain; the loop is unrolled by D so that every ring
+// index is static.  Backward reads a column, one element in each 32-byte
+// sector, and is left so.  A step's chain is the barrier, two
+// shared-memory loads, the division, one owner's update and its store.
+// Its measurements and the variants tried: PERF.md.
+template <typename T, int E>
+__global__ void __launch_bounds__(GS_THREADS_MAX)
 chol_solve_global_kernel(const T* __restrict__ gR, const T* __restrict__ gb,
                          T* __restrict__ gx, int n, int k) {
+  constexpr int D = gs_depth<T>(E);
   extern __shared__ __align__(16) float smf[];
-  T* w = reinterpret_cast<T*>(smf);
-  T* y = w + n;
-  const int tid = threadIdx.x, nt = blockDim.x, c = blockIdx.y;
+  T* v = reinterpret_cast<T*>(smf);
+  T* dg = v + n;
+  // a constant block size puts each entry's offset into its load's
+  // immediate rather than a register: large E spilled without it
+  const int tid = threadIdx.x, c = blockIdx.y,
+            nt = E * (int)sizeof(T) > GS_ENTRY_BYTES ? GS_THREADS_MAX
+                                                        : blockDim.x;
   const T* R = gR + (size_t)blockIdx.x * n * n;
   const size_t boff = (size_t)blockIdx.x * n * k;
-  for (int l = tid; l < n; l += nt) w[l] = gb[boff + (size_t)l * k + c];
+  // this thread's entries of R for combined step s (forward j = s, backward
+  // l = 2n - 1 - s), 0 where the step does not update the entry
+  auto fetch = [&](T (&dst)[E], int s) {
+    if (s < n) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int l = tid + nt * e;
+        dst[e] = l > s && l < n ? R[(size_t)s * n + l] : T(0);
+      }
+    } else {
+      const int l = 2 * n - 1 - s;  // < 0 past the last step: no entry
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int r = tid + nt * e;
+        dst[e] = r < l ? R[(size_t)r * n + l] : T(0);
+      }
+    }
+  };
+  T ring[D][E];
+#pragma unroll
+  for (int d = 0; d < D; ++d) fetch(ring[d], d);
+  for (int l = tid; l < n; l += nt) {
+    v[l] = gb[boff + (size_t)l * k + c];
+    dg[l] = R[(size_t)l * n + l];
+  }
   __syncthreads();
-  for (int j = 0; j < n; ++j) {
-    const T* rj = R + (size_t)j * n;
-    const T yj = w[j] / rj[j];
-    for (int l = j + 1 + tid; l < n; l += nt) w[l] = w[l] - yj * rj[l];
-    if (tid == 0) y[j] = yj;
-    __syncthreads();
+  T prev = T(0);  // the last step's quotient
+  for (int s0 = 0; s0 < 2 * n; s0 += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int s = s0 + d;
+      if (s >= 2 * n) break;
+      if (s < n) {
+        const T q = div_rn(v[s], dg[s]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int l = tid + nt * e;
+          if (l > s && l < n) v[l] = v[l] - q * ring[d][e];
+          if (l == s - 1) v[l] = prev;
+        }
+        prev = q;
+      } else {
+        const int l = 2 * n - 1 - s;
+        const T q = div_rn(s == n ? prev : v[l], dg[l]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int r = tid + nt * e;
+          if (r < l) v[r] = v[r] - ring[d][e] * q;
+          if (r == l + 1 && s > n) v[r] = prev;  // x_{l+1}; y_{n-1} unused
+        }
+        prev = q;
+      }
+      fetch(ring[d], s + D);
+      __syncthreads();
+    }
   }
-  for (int l = n - 1; l >= 0; --l) {
-    const T xl = y[l] / R[(size_t)l * n + l];
-    for (int r = tid; r < l; r += nt) y[r] = y[r] - R[(size_t)r * n + l] * xl;
-    if (tid == 0) w[l] = xl;
-    __syncthreads();
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int l = tid + nt * e;
+    if (l < n) gx[boff + (size_t)l * k + c] = l == 0 ? prev : v[l];
   }
-  for (int l = tid; l < n; l += nt) gx[boff + (size_t)l * k + c] = w[l];
 }
 
 template <typename T>
@@ -747,19 +835,35 @@ int launch_global(const T* M, T* R, int B, int n, int C, int b, void* stream,
               : launch_cluster<T, false>(M, R, B, n, C, b, s, nullptr);
 }
 
-template <typename T>
-int launch_solve_global(const T* R, const T* b, T* x, int B, int n, int k,
-                        void* stream) {
-  if (B == 0 || n == 0 || k == 0) return 0;
+template <typename T, int E>
+int launch_gs(const T* R, const T* b, T* x, int B, int n, int k, int nt,
+              cudaStream_t s) {
   const int smem = (int)(2 * (size_t)n * sizeof(T));
   cudaError_t e = cudaFuncSetAttribute(
-      chol_solve_global_kernel<T>,
+      chol_solve_global_kernel<T, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int threads = n < 256 ? (n + 31) / 32 * 32 : 256;
-  chol_solve_global_kernel<T><<<dim3(B, k), threads, smem,
-                                (cudaStream_t)stream>>>(R, b, x, n, k);
+  chol_solve_global_kernel<T, E><<<dim3(B, k), nt, smem, s>>>(R, b, x, n, k);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_solve_global(const T* R, const T* b, T* x, int B, int n, int k,
+                        int nt, int E, void* stream) {
+  if (B == 0 || n == 0 || k == 0) return 0;
+  if (nt < 32 || nt > GS_THREADS_MAX || nt % 32 || (long long)nt * E < n ||
+      (E * (int)sizeof(T) > GS_ENTRY_BYTES && nt != GS_THREADS_MAX))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (E) {
+    case 1: return launch_gs<T, 1>(R, b, x, B, n, k, nt, s);
+    case 2: return launch_gs<T, 2>(R, b, x, B, n, k, nt, s);
+    case 4: return launch_gs<T, 4>(R, b, x, B, n, k, nt, s);
+    case 8: return launch_gs<T, 8>(R, b, x, B, n, k, nt, s);
+    case 16: return launch_gs<T, 16>(R, b, x, B, n, k, nt, s);
+    case GS_E_MAX: return launch_gs<T, GS_E_MAX>(R, b, x, B, n, k, nt, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -783,13 +887,17 @@ extern "C" int qp_chol_global(const void* M, void* R, int B, int n, int f64,
                              stream, pr);
 }
 
+// the global-memory solve: threads a block and entries a thread as
+// linalg/chol.py:global_solve_shape picks them
 extern "C" int qp_chol_solve_global(const void* R, const void* b, void* x,
-                                    int B, int n, int k, int f64,
-                                    void* stream) {
+                                    int B, int n, int k, int threads,
+                                    int entries, int f64, void* stream) {
   return f64 ? launch_solve_global((const double*)R, (const double*)b,
-                                   (double*)x, B, n, k, stream)
+                                   (double*)x, B, n, k, threads, entries,
+                                   stream)
              : launch_solve_global((const float*)R, (const float*)b,
-                                   (float*)x, B, n, k, stream);
+                                   (float*)x, B, n, k, threads, entries,
+                                   stream);
 }
 
 // The shared-memory solve, `cols` right-hand sides per block.  kind 1:

@@ -51,6 +51,9 @@ KERNELS = {
     ("solve", "warp", torch.float64): "chol_solve_warp_f64",
     ("solve", "global", torch.float32): "chol_solve_global",
     ("solve", "global", torch.float64): "chol_solve_global_f64",
+    # the global plan with several right-hand sides (the polish's identity)
+    ("solve", "global_cols", torch.float32): "chol_solve_global_cols",
+    ("solve", "global_cols", torch.float64): "chol_solve_global_cols_f64",
 }
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
@@ -91,6 +94,28 @@ def global_smem_bytes(n: int, dtype, b: int) -> int:
 
 
 GlobalPlan = collections.namedtuple("GlobalPlan", "cluster b")
+
+# the global solve (csrc/chol.cu, chol_solve_global_kernel): threads a
+# block at most, entries a thread at most (the C side checks both), and
+# the bytes of R a thread that the threads are picked for
+GS_THREADS_MAX, GS_E_MAX, GS_ENTRY_BYTES = 512, 32, 8
+GS_N_MAX = GS_THREADS_MAX * GS_E_MAX
+
+
+def global_solve_shape(n: int, dtype) -> tuple[int, int]:
+    """(threads, E) of the global solve for n x n, any number of
+    right-hand sides: a thread for each GS_ENTRY_BYTES of a row of R (n / 2
+    at f32, n at f64), a multiple of 32 in [32, GS_THREADS_MAX], and E
+    entries a thread, the least power of two with E threads >= n (at most
+    GS_E_MAX, so n <= GS_N_MAX).  E is larger than GS_ENTRY_BYTES' worth
+    only at GS_THREADS_MAX threads, which the kernel then takes as a
+    constant.  The kernel's ring depth follows from E on the C side."""
+    per = GS_ENTRY_BYTES // _esize(dtype, "cholesky_solve")
+    nt = min(max(32, -(-n // (32 * per)) * 32), GS_THREADS_MAX)
+    E = 1
+    while E * nt < n:
+        E *= 2
+    return nt, E
 
 
 def global_plan(B: int, n: int, dtype, sms: int = 132) -> GlobalPlan:
@@ -137,11 +162,26 @@ def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
     cols = min(k, _SOLVE_COLS)
     if (n * n + n * cols) * es <= SMEM_LIMIT:
         return "entry", cols
-    if 2 * n * es <= SMEM_LIMIT:  # the global plan's two n-vectors
+    # the global plan's two n-vectors in shared memory, and at most
+    # GS_E_MAX entries of each a thread (f32 n > 16384 only; f64 runs out
+    # of shared memory first)
+    if 2 * n * es <= SMEM_LIMIT and n <= GS_N_MAX:
         return "global", 1
     raise ValueError(f"cholesky_solve: n={n} {dtype} fits no plan (the "
-                     f"global plan's {2 * n * es} bytes of shared memory "
-                     f"are over {SMEM_LIMIT})")
+                     f"global plan takes n <= {GS_N_MAX} and its "
+                     f"{2 * n * es} bytes of shared memory are over "
+                     f"{SMEM_LIMIT})")
+
+
+def solve_kernel(plan: str, k: int, dtype) -> str:
+    """The name in KERNELS that a solve in `plan` with k right-hand sides
+    counts under: the global plan's one-vector solves apart from its
+    solves of several columns (the polish's identity)."""
+    if plan == "global":
+        key = "global_cols" if k > 1 else "global"
+    else:
+        key = "warp" if plan == "warp" else "smem"
+    return KERNELS["solve", key, dtype]
 
 
 def cholesky_upper_plain(M: torch.Tensor) -> torch.Tensor:
@@ -268,14 +308,15 @@ def cholesky_solve(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         lib = kernels()
         ptrs = (R.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, k)
         if plan == "global":
-            rc = lib.qp_chol_solve_global(*ptrs, int(f64), _stream())
+            rc = lib.qp_chol_solve_global(*ptrs,
+                                          *global_solve_shape(n, R.dtype),
+                                          int(f64), _stream())
         else:
             rc = lib.qp_chol_solve(*ptrs, cols, _SOLVE_KINDS[plan],
                                    int(f64), _stream())
     check_launch("qp_chol_solve", rc)
     cholesky_solve.launches += 1
-    KERNEL_LAUNCHES[KERNELS["solve", plan if plan in ("global", "warp")
-                            else "smem", R.dtype]] += 1
+    KERNEL_LAUNCHES[solve_kernel(plan, k, R.dtype)] += 1
     return x
 
 

@@ -206,12 +206,24 @@ def test_factor_plan_selection(n, dtype, plan):
     (64, 169, 1, torch.float64, ("entry", 1)),
     (64, 170, 1, torch.float64, ("warp", 1)),
     (64, 171, 1, torch.float64, ("global", 1)),
-    (128, 224, 1, torch.float64, ("global", 1))])
+    (128, 224, 1, torch.float64, ("global", 1)),
+    (64, 211, 211, torch.float32, ("entry", 64)),
+    (64, 212, 212, torch.float32, ("global", 1)),
+    (64, 480, 480, torch.float32, ("global", 1)),
+    (64, 256, 256, torch.float32, ("global", 1)),
+    (8, 200, 3, torch.float64, ("global", 1)),
+    (8, 200, 1, torch.float64, ("global", 1))])
 def test_solve_plan_selection(B, n, k, dtype, plan):
     """The solve: the blocked kernel for f32 n a multiple of 8 whose plan
     fits, a warp a matrix for f64 one-vector solves of even n that fit,
-    else R and the columns in shared memory, else global memory."""
+    else R and the columns in shared memory, else global memory.  The
+    global plan counts its one-vector solves and its solves of several
+    columns (the polish's identity from f32 n = 212) apart."""
     assert chol.solve_plan(B, n, k, dtype, sms=132) == plan
+    if plan[0] == "global":
+        assert chol.solve_kernel(plan[0], k, dtype) == (
+            "chol_solve_global" + ("_cols" if k > 1 else "")
+            + ("_f64" if dtype == torch.float64 else ""))
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
@@ -299,18 +311,42 @@ def test_cuda_factor_plans_are_bit_identical_to_plain(B, n, dtype):
     (5, 480, 0, torch.float32), (3, 7, 5, torch.float64),
     (3, 300, 2, torch.float64), (512, 64, 0, torch.float64),
     (1, 2, 0, torch.float64), (3, 168, 0, torch.float64),
-    (200, 100, 0, torch.float64), (64, 9, 0, torch.float64)])
+    (200, 100, 0, torch.float64), (64, 9, 0, torch.float64),
+    (64, 480, 0, torch.float64), (64, 480, 0, torch.float32),
+    (3, 481, 0, torch.float64), (3, 483, 0, torch.float32),
+    (4, 256, -1, torch.float32), (1, 8191, 0, torch.float64),
+    (1, 8193, 0, torch.float64), (1, 16383, 0, torch.float32),
+    (1, 16384, 0, torch.float32)])
 def test_cuda_solve_plans_are_bit_identical_to_plain(B, n, k, dtype):
     """K2b's f64 instantiation (a warp a matrix for one vector of even n)
     and its global plan against the twin, bit for bit; k = 0 is one
-    vector."""
+    vector, k = -1 the polish's identity right-hand sides.  The global
+    solve at the general loop's (64, 480), at odd n (rows of R not 16-byte
+    aligned), at the identity's smallest global shape past f32 n = 211,
+    and at n = 512 E +- 1 where E steps up to 32 (f64 8192, f32 16384,
+    whose n + 1 fits no plan; a random upper R with a strong diagonal: no
+    factor that large)."""
     dev = _cuda()
     np_dt = np.float64 if dtype == torch.float64 else np.float32
-    R = cholesky_upper_plain(torch.from_numpy(
-        _spd_batch(B, n, seed=23, dtype=np_dt)).to(dev))
+    if n > 1000:
+        g = torch.Generator(device=dev).manual_seed(23)
+        R = torch.triu(torch.randn((B, n, n), generator=g, device=dev,
+                                   dtype=dtype)) \
+            + n * torch.eye(n, device=dev, dtype=dtype)
+    else:
+        R = cholesky_upper_plain(torch.from_numpy(
+            _spd_batch(B, n, seed=23, dtype=np_dt)).to(dev))
     rng = np.random.default_rng(24)
-    b = torch.from_numpy(rng.standard_normal(
-        (B, n) if k == 0 else (B, n, k)).astype(np_dt)).to(dev)
+    if k < 0:
+        b = torch.eye(n, device=dev, dtype=dtype).expand(B, n, n).contiguous()
+    else:
+        b = torch.from_numpy(rng.standard_normal(
+            (B, n) if k == 0 else (B, n, k)).astype(np_dt)).to(dev)
+    cols = 1 if b.dim() == 2 else b.shape[2]
+    name = chol.solve_kernel(chol.solve_plan(B, n, cols, dtype)[0], cols,
+                             dtype)
+    before = dict(chol.KERNEL_LAUNCHES)
     x = cholesky_solve(R, b)
+    assert chol.KERNEL_LAUNCHES[name] == before.get(name, 0) + 1
     assert x.dtype == dtype
     assert torch.equal(x, cholesky_solve_plain(R, b))

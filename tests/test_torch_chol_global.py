@@ -13,12 +13,20 @@ by plain emulations of their schedules, and their plans:
       entries t, t + 32, ..., every lane forming each step's numerator
       itself, forward in saxpy form and backward in column form: bit for
       bit cholesky_solve_plain;
-  (c) the plans: shapes, shared memory within SMEM_LIMIT for every n they
+  (c) the global solve (chol_solve_global_kernel): threads owning entries
+      t, t + nt, ..., each loading its entries of R for step s + D at step
+      s into a ring of D registers, every quotient written into its entry a
+      step later, no thread writing an entry another reads in that step:
+      bit for bit cholesky_solve_plain;
+  (d) the plans: shapes, shared memory within SMEM_LIMIT for every n they
       admit, and a ValueError where nothing fits.
 
 On a card: a cluster launch the card refuses raising, and the next launch
 running clean (the factor and the solve against their twins are in
 test_torch_chol.py)."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -152,6 +160,126 @@ def test_warp_solve_order_is_bit_identical(n):
     b = np.random.default_rng(31).standard_normal((3, n))
     want = cholesky_solve_plain(R, torch.from_numpy(b)).numpy()
     assert np.array_equal(_solve_warp(R.numpy(), b), want)
+
+
+def _solve_global(R, b, nt, E, D):
+    """chol_solve_global_kernel in scalar steps of R's precision, for each
+    matrix and column of b (B, n, k): the combined steps s = 0..2n-1
+    (forward j = s, backward l = 2n - 1 - s), thread t's entries t + nt e,
+    its ring slot s % D refilled at step s with step s + D's entries of R.
+    Every write is asserted to be by the entry's owner and not to the
+    entry that the step reads."""
+    f = R.dtype.type
+    Bm, n, k = b.shape
+    x = np.empty_like(b)
+
+    def fetch(Rm, t, s):
+        out = np.zeros(E, f)
+        for e in range(E):
+            i = t + nt * e
+            if s < n and s < i < n:
+                out[e] = Rm[s, i]
+            elif s >= n and i < 2 * n - 1 - s:
+                out[e] = Rm[i, 2 * n - 1 - s]
+        return out
+
+    for m in range(Bm):
+        Rm, dg = R[m], np.diag(R[m]).copy()
+        for c in range(k):
+            v = b[m, :, c].copy()
+            ring = [[fetch(Rm, t, d) for d in range(D)] for t in range(nt)]
+            prev = f(0)
+            for s in range(2 * n):
+                fwd = s < n
+                read = s if fwd else 2 * n - 1 - s
+                q = f((prev if s == n else v[read]) / dg[read])
+                for t in range(nt):
+                    for e in range(E):
+                        i, r = t + nt * e, ring[t][s % D][e]
+                        if fwd and s < i < n:
+                            new = f(v[i] - f(q * r))
+                        elif not fwd and i < read:
+                            new = f(v[i] - f(r * q))
+                        elif i == (s - 1 if fwd else read + 1) and s != n:
+                            new = prev
+                        else:
+                            continue
+                        assert i < n and i % nt == t and i != read
+                        v[i] = new
+                    ring[t][s % D] = fetch(Rm, t, s + D)
+                prev = q
+            x[m, :, c] = v
+            x[m, 0, c] = prev
+    return x
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,nt,E,D", [(1, 32, 1, 8), (2, 1, 2, 1),
+                                      (9, 4, 4, 3), (37, 4, 16, 8),
+                                      (64, 16, 4, 8), (64, 32, 2, 5)])
+def test_global_solve_order_is_bit_identical(n, nt, E, D, dtype):
+    """Ragged ownership (n < nt E), rings deeper than the solve and depths
+    that do not divide n."""
+    M = _spd(2, n, dtype, seed=40 + n)
+    R = cholesky_upper_plain(M)
+    b = np.random.default_rng(41).standard_normal((2, n, 2)).astype(dtype)
+    b[1, :, 1] = np.eye(n, dtype=dtype)[:, n // 2]  # an identity column
+    want = cholesky_solve_plain(R, torch.from_numpy(b)).numpy()
+    assert np.array_equal(_solve_global(R.numpy(), b, nt, E, D), want)
+
+
+_CHOL_CU = Path(chol.__file__).resolve().parent.parent / "csrc" / "chol.cu"
+
+
+def test_global_solve_shape_mirrors_the_launcher():
+    """chol.py's limits are csrc/chol.cu's, and the launcher instantiates
+    every E that global_solve_shape can pick (1 to GS_E_MAX, powers of
+    two)."""
+    src = _CHOL_CU.read_text()
+    for name in ("GS_THREADS_MAX", "GS_E_MAX", "GS_ENTRY_BYTES"):
+        hit = re.search(rf"\b{name} = (\d+)", src)
+        assert hit and int(hit.group(1)) == getattr(chol, name), name
+    body = src[src.index("int launch_solve_global("):]
+    body = body[:body.index("\n}\n")]
+    cases = {chol.GS_E_MAX if e == "GS_E_MAX" else int(e)
+             for e in re.findall(r"launch_gs<T, (\w+)>", body)}
+    assert cases == {1 << i for i in range(chol.GS_E_MAX.bit_length())}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_global_solve_shape_fits_every_n(dtype):
+    """Every n up to 8192: threads a multiple of 32 up to GS_THREADS_MAX,
+    an E that the launcher instantiates (1 to GS_E_MAX, powers of two),
+    the fewest such, more than GS_ENTRY_BYTES of R a thread only at
+    GS_THREADS_MAX threads (the kernel takes the block size as a constant
+    there), and the column and diagonal within SMEM_LIMIT wherever the
+    plan is global, for one right-hand side and for several."""
+    es = 4 if dtype == torch.float32 else 8
+    for n in range(1, 8193):
+        nt, E = chol.global_solve_shape(n, dtype)
+        assert nt % 32 == 0 and 32 <= nt <= chol.GS_THREADS_MAX
+        assert E in (1, 2, 4, 8, 16, 32) and E * nt >= n
+        assert E == 1 or E * nt < 2 * n
+        assert E * es <= chol.GS_ENTRY_BYTES or nt == chol.GS_THREADS_MAX
+        for k in (1, 2, n):
+            if chol.solve_plan(64, n, k, dtype)[0] == "global":
+                assert 2 * n * es <= chol.SMEM_LIMIT
+    # the shape the general loop (and the polish, f32) launch at n = 480
+    assert chol.global_solve_shape(480, dtype) == ((256, 2) if es == 4
+                                                   else (480, 1))
+
+
+def test_global_solve_takes_n_up_to_its_largest_e():
+    """f64 runs out of shared memory (n > 14528) before the kernel's
+    largest E (n > 16384); f32 n past 16384 fits no plan."""
+    assert chol.solve_plan(1, chol.GS_N_MAX, 1, torch.float32)[0] == "global"
+    assert chol.global_solve_shape(chol.GS_N_MAX, torch.float32) == (512, 32)
+    assert chol.solve_plan(1, 14528, 1, torch.float64)[0] == "global"
+    for n, dtype in ((chol.GS_N_MAX + 1, torch.float32), (29056,
+                                                          torch.float32),
+                     (14529, torch.float64)):
+        with pytest.raises(ValueError, match="fits no plan"):
+            chol.solve_plan(1, n, 1, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -2,7 +2,7 @@
 the card.
 
     python tools/stream_ab.py [--tier stream|smem]
-                              [--kernel k1|chol|chol_solve] [DIR ...]
+                              [--kernel k1|chol|chol_solve|general] [DIR ...]
 
 Each DIR holds a `qpalm_tpu_torch` package (default: this checkout's).
 Each copy is built and timed in a process of its own, in the order given,
@@ -27,9 +27,19 @@ right-hand sides, as the polish calls it, at (512, 64, 64) and at the
 second round's (64, 64, 64), each the mean of 100 launches by CUDA events
 after 0.3 s of warm-up, queued behind a device sleep so that the host's
 time per call is not counted, from the factor of chip_smoke.py phase 3's
-SPD batch, and the f64 solve of one vector a matrix at (512, 64).
-`--kernel chol`: K2a (`linalg.chol.cholesky_upper`) on that batch, and the
-cluster factor at (64, 480, 480) in f32 and f64, timed the same way.
+SPD batch, and the f64 solve of one vector a matrix at (512, 64).  Then
+the global plan (`chol_solve_global_kernel`) on the factors of the SPD
+batch below: one vector a matrix at (64, 480) in f32 and f64, as the
+general loop solves randomQP n=480, and the identity at f32 (64, 480,
+480), as the device polish calls it there.
+`--kernel chol`: K2a (`linalg.chol.cholesky_upper`) on phase 3's batch,
+and the cluster factor at (64, 480, 480) in f32 and f64 on an SPD batch
+from `default_rng(1)`, timed the same way.
+`--kernel general`: the general loop end to end, `batch.solve_batch` of the
+sweep's randomQP n=480 row (B=64) at the default `Settings()` (f64), as
+chip_smoke.py phase 14 runs it: the host wall of two solves after one
+warm-up, each synchronised, with the K2 launches of the last by kernel and
+a hash of its x.
 """
 
 import argparse
@@ -86,6 +96,12 @@ def queued(fn):
     return dict(ms=start.elapsed_time(end) / 100,
                 out_sha256=sha.hexdigest()[:16])
 
+def wide_spd(dt):
+    # the general loop's matrices past shared memory (randomQP n=480)
+    G = np.random.default_rng(1).standard_normal((64, 480, 480))
+    return torch.from_numpy((G @ np.transpose(G, (0, 2, 1))
+                             + 480 * np.eye(480)).astype(dt)).cuda()
+
 runs = {}
 if sys.argv[2] in ("chol", "chol_solve"):
     from qpalm_tpu_torch.linalg import chol
@@ -103,11 +119,8 @@ if sys.argv[2] in ("chol", "chol_solve"):
         eye = torch.eye(64, device="cuda").expand(B, 64, 64).contiguous()
         runs[f"({B}, 64, 64)"] = queued(lambda: chol.cholesky_solve(Rb, eye))
     if sys.argv[2] == "chol":
-        # the general loop's factors past shared memory (randomQP n=480)
-        G = np.random.default_rng(1).standard_normal((64, 480, 480))
         for dt in (np.float32, np.float64):
-            Mw = torch.from_numpy((G @ np.transpose(G, (0, 2, 1))
-                                   + 480 * np.eye(480)).astype(dt)).cuda()
+            Mw = wide_spd(dt)
             runs[f"{dt.__name__} (64, 480, 480)"] = queued(
                 lambda: chol.cholesky_upper(Mw))
     else:
@@ -117,6 +130,37 @@ if sys.argv[2] in ("chol", "chol_solve"):
         R64 = chol.cholesky_upper(M64)
         runs["float64 (512, 64)"] = queued(
             lambda: chol.cholesky_solve(R64, b64))
+        # the global plan: one vector a matrix, then the polish's identity
+        for dt in (np.float32, np.float64):
+            Rw = chol.cholesky_upper(wide_spd(dt))
+            bw = torch.from_numpy(np.random.default_rng(2).standard_normal(
+                (64, 480)).astype(dt)).cuda()
+            runs[f"{dt.__name__} (64, 480)"] = queued(
+                lambda: chol.cholesky_solve(Rw, bw))
+            if dt is np.float32:
+                eye = torch.eye(480, device="cuda").expand(64, 480,
+                                                           480).contiguous()
+                runs["float32 (64, 480, 480) identity"] = queued(
+                    lambda: chol.cholesky_solve(Rw, eye))
+elif sys.argv[2] == "general":
+    from qpalm_tpu_torch import sweep
+    from qpalm_tpu_torch.batch import solve_batch
+    from qpalm_tpu_torch.linalg import chol
+    from qpalm_tpu_torch.types import Settings
+    probs = sweep.row_problems("randomQP", 480, batch=64)
+    solve_batch(probs, Settings(), device="cuda")
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        chol.KERNEL_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = solve_batch(probs, Settings(), device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    sha = hashlib.sha256(res.x.cpu().numpy().tobytes())
+    runs["randomQP 480 Settings()"] = dict(
+        wall_s=walls, launches=dict(chol.KERNEL_LAUNCHES),
+        x_sha256=sha.hexdigest()[:16])
 elif sys.argv[2] == "stream":
     from qpalm_tpu_torch import sweep
     s = sweep.S32
@@ -149,8 +193,8 @@ print(json.dumps({"dir": sys.argv[1], "device": torch.cuda.get_device_name(0),
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tier", choices=("stream", "smem"), default="stream")
-    ap.add_argument("--kernel", choices=("k1", "chol", "chol_solve"),
-                    default="k1")
+    ap.add_argument("--kernel", choices=("k1", "chol", "chol_solve",
+                                         "general"), default="k1")
     ap.add_argument("dirs", nargs="*")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
