@@ -89,7 +89,18 @@ Phases, each asserting, any failure exiting non-zero:
      cuts the solve (TIME_LIMIT_REACHED on the unfinished lanes, the
      finished ones unchanged); and the sweep's randomQP n=320 and 352 rows
      (B=64) through the general loop and through streaming K1, timed.  The
-     K2 counters are zeroed before each solve and read after.
+     K2 counters are zeroed before each solve and read after;
+ 15. K2's wide plans, at sizes the other plans do not take: the cluster
+     factor with its panels in a global scratch at f64 (1, 3640, 3640), f64
+     (2, 3640, 3640) and f32 (1, 7272, 7272), the global solve with its
+     column in x's at f64 n = 14536 and f32 n = 16392 (k = 1 and 2, R a
+     random upper triangle with a dominant diagonal), each bit for bit
+     against its twin run on the card, timed beside torch.linalg.cholesky
+     and torch.cholesky_solve and its bound, the factor split by its cycle
+     counters; then solve_batch at the default Settings() (f64, no cap on
+     max_iter) on one randomQP n=3640 problem (m = n): solved, the f64
+     referee holding its KKT residuals within the settings' eps, the wide
+     factor launched (the counters zeroed before and read after).
 
 It prints a JSON line of the kernels' numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}} only when every phase passed.
@@ -176,6 +187,14 @@ K2_SHAPES = (
 CPU_LANES = 32
 WIDE_N, WIDE_B = 480, 64  # phase 14's randomQP row past K1
 STREAM_ROWS = (320, 352)  # phase 14's STREAM_N_MAX rows, at WIDE_B
+# phase 15: the wide plans just past the others' last n (f64 3632 and f32
+# 7264 for the factor, f64 14528 and f32 16384 for the solve), as (B, n,
+# dtype), the first of each dtype the kernels line's row; and the
+# randomQP n of its solve_batch run
+WIDE_FACTORS = ((1, 3640, "float64"), (2, 3640, "float64"),
+                (1, 7272, "float32"))
+WIDE_SOLVES = ((14536, "float64"), (16392, "float32"))
+WIDE_QP_N = 3640
 
 
 def bound(flops, nbytes, peak=F32_PEAK):
@@ -226,10 +245,18 @@ KERNEL_NAMES = (("fused_palm_kernelILb1E", "K1 streaming (fused_palm_kernel"
                  "<true>)"), ("fused_palm_kernelILb0ELb0E", "K1 on chip"),
                 ("fused_palm_kernelILb0ELb1E", "K1 on chip, profiled"),
                 ("11chol_kernel", "K2a"),
-                ("19chol_cluster_kernelIfLb0", "K2a cluster f32"),
-                ("19chol_cluster_kernelIfLb1", "K2a cluster f32, profiled"),
-                ("19chol_cluster_kernelIdLb0", "K2a cluster f64"),
-                ("19chol_cluster_kernelIdLb1", "K2a cluster f64, profiled"),
+                ("19chol_cluster_kernelIfLb0ELb0E", "K2a cluster f32"),
+                ("19chol_cluster_kernelIfLb1ELb0E",
+                 "K2a cluster f32, profiled"),
+                ("19chol_cluster_kernelIdLb0ELb0E", "K2a cluster f64"),
+                ("19chol_cluster_kernelIdLb1ELb0E",
+                 "K2a cluster f64, profiled"),
+                ("19chol_cluster_kernelIfLb0ELb1E", "K2a wide f32"),
+                ("19chol_cluster_kernelIfLb1ELb1E", "K2a wide f32, profiled"),
+                ("19chol_cluster_kernelIdLb0ELb1E", "K2a wide f64"),
+                ("19chol_cluster_kernelIdLb1ELb1E", "K2a wide f64, profiled"),
+                ("22chol_solve_wide_kernelIfE", "K2b wide f32"),
+                ("22chol_solve_wide_kernelIdE", "K2b wide f64"),
                 ("23chol_solve_panel_kernel", "K2b blocked"),
                 ("17chol_solve_kernel", "K2b entry by entry"),
                 ("22chol_solve_warp_kernelIdLi2E",
@@ -1074,6 +1101,131 @@ def phase_general(dev, probs, s32, k_np, x_cert, ok_cert):
     return numbers, launches
 
 
+def phase_wide(dev):
+    """Phase 15: K2's wide plans at the sizes no other plan takes, against
+    their twins on the card, then solve_batch through the wide factor.
+    Returns (numbers, launches) of the kernels line's wide rows."""
+    import numpy as np
+    import torch
+
+    from qpalm_tpu_torch import constants as C
+    from qpalm_tpu_torch import referee
+    from qpalm_tpu_torch.batch import stack_problems
+    from qpalm_tpu_torch.linalg import chol
+    from qpalm_tpu_torch.types import QPData, Settings
+    from qpalm_tpu_torch.workloads import random_qp
+
+    numbers = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for nb, n, dt in WIDE_FACTORS:
+        dtype = getattr(torch, dt)
+        label = f"{dt} ({nb}, {n}, {n})"
+        g = torch.Generator(device=dev).manual_seed(15 + nb)
+        G = torch.randn((nb, n, n), generator=g, device=dev, dtype=dtype)
+        M = G @ G.transpose(1, 2) + n * torch.eye(n, device=dev, dtype=dtype)
+        del G
+        gp = chol.global_plan(nb, n, dtype, sms)
+        require(chol.factor_plan(n, dtype) == "wide" and gp.panel == "global",
+                f"K2 wide factor {label}: plan {gp}")
+        R = chol.cholesky_upper(M)
+        Rp, plain_ms = timed(lambda: chol.cholesky_upper_plain(M))
+        require(torch.equal(R, Rp), f"K2 wide factor {label} vs plain: "
+                f"{int((R != Rp).sum())} entries differ")
+        del Rp
+        prof = torch.zeros((nb * gp.cluster, 8), dtype=torch.int64,
+                           device=dev)
+        R2 = torch.empty_like(M)
+        require(chol._launch_global(M, R2, gp, prof) == 0,
+                f"K2 wide factor {label}: profiled launch refused")
+        torch.cuda.synchronize()
+        require(torch.equal(R2, R), f"K2 wide factor {label}: the profiled "
+                "instantiation differs")
+        del R2
+        es = M.element_size()
+        peak = F64_PEAK if dtype == torch.float64 else F32_PEAK
+        row = dict(max_abs_err=0.0,
+                   ms=cuda_ms(lambda: chol.cholesky_upper(M), 3),
+                   plain_ms=plain_ms,
+                   library_ms=cuda_ms(lambda: torch.linalg.cholesky(
+                       M, upper=True), 3),
+                   **bound(nb * n ** 3 / 3, 2 * es * nb * n * n, peak))
+        cyc = prof.double().mean(0).tolist()[:len(chol.CLUSTER_SECTIONS)]
+        split = {sec: round(row["ms"] * c / sum(cyc), 3)
+                 for sec, c in zip(chol.CLUSTER_SECTIONS, cyc)}
+        say(f"[wide K2 factor {label}] bit-identical to the twin; "
+            f"{gp.cluster} CTAs a matrix, panels of {gp.b} rows in a "
+            f"{chol.panel_scratch_bytes(nb, n, dtype, gp)}-byte scratch; "
+            f"{row['ms']:.3f} ms (bound {row['bound_ms']:.3f} "
+            f"{row['bound_by']}, plain {plain_ms:.1f}, torch.linalg.cholesky"
+            f" {row['library_ms']:.3f}); by its counters {split} ms")
+        name = chol.KERNELS["factor", "wide", dtype]
+        numbers.setdefault(name, row)
+        del M, R
+
+    for n, dt in WIDE_SOLVES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(150)
+        R = torch.triu(torch.rand((1, n, n), generator=g, device=dev,
+                                  dtype=dtype) - 0.5)
+        R.diagonal(dim1=1, dim2=2).fill_(n)
+        for k in (1, 2):
+            label = f"{dt} n={n} k={k}"
+            b = torch.randn((1, n) if k == 1 else (1, n, k), generator=g,
+                            device=dev, dtype=dtype)
+            b3 = b[..., None] if k == 1 else b
+            require(chol.solve_plan(1, n, k, dtype) == ("wide", 1),
+                    f"K2 wide solve {label}: plan "
+                    f"{chol.solve_plan(1, n, k, dtype)}")
+            x = chol.cholesky_solve(R, b)
+            xp, plain_ms = timed(lambda: chol.cholesky_solve_plain(R, b))
+            require(torch.equal(x, xp), f"K2 wide solve {label} vs plain: "
+                    f"{int((x != xp).sum())} entries differ")
+            x3 = x.reshape(b3.shape).double()
+            Rd = R.double()
+            res = ((Rd.transpose(1, 2) @ (Rd @ x3) - b3.double()).abs().max()
+                   / b3.double().abs().max()).item()
+            del Rd
+            require(res < (1e-12 if dtype == torch.float64 else 1e-3),
+                    f"K2 wide solve {label}: residual {res:.3e}")
+            es = R.element_size()
+            peak = F64_PEAK if dtype == torch.float64 else F32_PEAK
+            row = dict(max_abs_err=0.0,
+                       ms=cuda_ms(lambda: chol.cholesky_solve(R, b), 3),
+                       plain_ms=plain_ms,
+                       library_ms=cuda_ms(lambda: torch.cholesky_solve(
+                           b3, R, upper=True), 3),
+                       **bound(2 * n * n * k, es * (n * n + 2 * n * k),
+                               peak))
+            say(f"[wide K2 solve {label}] bit-identical to the twin, "
+                f"residual {res:.1e}; {row['ms']:.3f} ms (bound "
+                f"{row['bound_ms']:.3f} {row['bound_by']}, plain "
+                f"{plain_ms:.1f}, torch.cholesky_solve "
+                f"{row['library_ms']:.3f})")
+            if k == 1:
+                numbers[chol.solve_kernel("wide", k, dtype)] = row
+        del R
+
+    s = Settings()
+    probs = [random_qp(WIDE_QP_N)]
+    res, wall, lw = general_solve(dev, probs, s,
+                                  f"randomQP n={WIDE_QP_N} Settings()")
+    d64 = QPData(*(a.numpy() for a in stack_problems(probs, np.float64)))
+    viol = referee.check(*d64, res.x.cpu().numpy(), res.y.cpu().numpy(),
+                         s.eps_abs, s.eps_rel)[0]
+    say(f"[wide general randomQP n={WIDE_QP_N} Settings()] status "
+        f"{int(res.status[0])}, {int(res.iterations[0])} iterations, "
+        f"referee violation {viol[0]:.3e} at eps {s.eps_abs:.0e} (<= 1 "
+        f"holds), wall {wall:.2f} s")
+    require(int(res.status[0]) == C.QPALM_SOLVED,
+            f"randomQP n={WIDE_QP_N}: status {int(res.status[0])}")
+    require(viol[0] <= 1.0, f"randomQP n={WIDE_QP_N}: referee violation "
+            f"{viol[0]:.3e}")
+    require(lw.get("chol_global_wide_f64", 0) > 0,
+            f"randomQP n={WIDE_QP_N}: K2 launches {lw}")
+    launches = {name: lw.get(name, 0) for name in numbers}
+    return numbers, launches
+
+
 def main():
     import torch
 
@@ -1134,6 +1286,8 @@ def main():
                 if hit:  # the global solve, an instantiation an E
                     label += (f" {'f32' if hit[1] == 'f' else 'f64'}, E = "
                               f"{hit[2]}")
+                    require(st == 0 and ld == 0, f"{label} spills")
+                if "wide" in label and "profiled" not in label:
                     require(st == 0 and ld == 0, f"{label} spills")
                 say(f"[build] {label}: {regs} registers, {st} bytes spill "
                     f"stores, {ld} bytes spill loads")
@@ -1348,7 +1502,14 @@ def main():
         dev, probs, s32, k_np, x_cert, ok_cert)
     numbers.update(general_numbers)
     launches.update(general_launches)
-    say(f"[time] phase 14 {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    say(f"[time] phase 14 {t9 - t8:.1f} s")
+
+    # ---- 15. the wide plans ----
+    wide_numbers, wide_launches = phase_wide(dev)
+    numbers.update(wide_numbers)
+    launches.update(wide_launches)
+    say(f"[time] phase 15 {time.perf_counter() - t9:.1f} s")
 
     csrc = "qpalm_tpu_torch/csrc/"
     table = [
@@ -1368,7 +1529,8 @@ def main():
          "qpalm_tpu/linalg/pallas_chol.py:123"),
         *((f"chol{part}_{plan}", f"chol{part}_{plan}", csrc + "chol.cu",
            f"qpalm_tpu/linalg/pallas_chol.py:{98 if not part else 123}")
-          for plan in ("f64", "global", "global_f64")
+          for plan in ("f64", "global", "global_f64", "global_wide",
+                       "global_wide_f64")
           for part in ("", "_solve")),
         ("chol_solve_global_cols", "chol_solve_global_cols",
          csrc + "chol.cu", "qpalm_tpu/linalg/pallas_chol.py:123"),

@@ -51,8 +51,13 @@
 // in the same order of operations: each thread loads its own entries of R
 // for step s + D at step s, into a ring of registers, so that no load of R
 // lies on the chain of 2n dependent steps, and R's diagonal sits in shared
-// memory beside the column.  linalg/chol.py picks the plan (and the
-// global solve's threads and entries a thread, global_solve_shape).
+// memory beside the column.  Past those (the "wide" plans) no n is
+// refused: where a panel of 8 rows no longer fits a CTA (f32 n > 7264, f64
+// n > 3632) each CTA's panel lives in a global scratch, and past the
+// solve's shared vectors or its ring's entries (f64 n > 14528, n > 16384)
+// the column lives in x's (chol_solve_wide_kernel).  linalg/chol.py picks
+// the plan (and the global solve's threads and entries a thread,
+// global_solve_shape).
 //
 // Entry points (plain C, for ctypes) launch on the given stream, allocate
 // nothing, do not synchronise, and return cudaGetLastError().
@@ -410,7 +415,12 @@ chol_solve_panel_kernel(const float* __restrict__ gR,
 //    into its own shared memory and factors it there, row by row,
 //    left-looking, one block barrier a row: the CTAs compute the same
 //    numbers, so no finished panel has to be published and waited for,
-//    and each CTA needs all of it for its trailing tiles;
+//    and each CTA needs all of it for its trailing tiles.  Where not even
+//    a panel of CTILE rows fits a CTA (f32 n > 7264, f64 n > 3632) the
+//    panel lives in the CTA's own slice of a global scratch instead (GPAN,
+//    the "wide" plan), read through L1 and L2, in the same loops and the
+//    same order: __syncthreads() orders a CTA's global writes and reads as
+//    it does its shared ones;
 //  - each CTA updates its own tiles of the trailing upper triangle, CTILE x
 //    CTILE in registers, each loaded once and stored once into R,
 //    subtracting the panel's bb products in row order;
@@ -426,25 +436,26 @@ chol_solve_panel_kernel(const float* __restrict__ gR,
 // variant that kept the trailing triangle in the cluster's shared memory
 // (4-8 CTAs a matrix at n = 480) ran in several waves at the general
 // loop's B = 64 and lost to one wave of 2-CTA clusters with the triangle
-// in R, which L2 holds (PERF.md).  linalg/chol.py:global_plan picks C and
-// b (and mirrors cluster_smem_bytes).  Every entry gets the twin's
-// arithmetic in the twin's order: entry (k, l) less R_ik R_il for i = 0,
-// 1, ..., k - 1 (the earlier panels' in the trailing updates, this
-// panel's in its row), each product and each difference rounded, then
-// times 1 / sqrt of the pivot so reduced (not rsqrt), the diagonal pivot
-// * inv: bit for bit linalg/chol.py:cholesky_upper_plain, as
+// in R, which L2 holds (PERF.md).  linalg/chol.py:global_plan picks C, b and
+// where the panel lives (and mirrors cluster_smem_bytes).  Every entry gets
+// the twin's arithmetic in the twin's order: entry (k, l) less R_ik R_il for
+// i = 0, 1, ..., k - 1 (the earlier panels' in the trailing updates, this
+// panel's in its row), each product and each difference rounded, then times
+// 1 / sqrt of the pivot so reduced (not rsqrt), the diagonal pivot * inv:
+// bit for bit linalg/chol.py:cholesky_upper_plain, as
 // stream.cuh:chol_blocked is.
 constexpr int CTILE = 8;
 constexpr int CLUSTER_THREADS = 256;
 constexpr int CLUSTER_MAX = 8;  // the portable cluster size
 
-// dynamic shared memory of a CTA of the cluster factor: the panel, b rows
-// of CTILE * ceil(n / CTILE) elements of es bytes
+// the panel of a CTA of the cluster factor, b rows of CTILE * ceil(n /
+// CTILE) elements of es bytes: its dynamic shared memory, or its slice of
+// the global scratch
 __host__ __device__ inline size_t cluster_smem_bytes(int n, int es, int b) {
   return (size_t)b * ((n + CTILE - 1) / CTILE) * CTILE * es;
 }
 
-// CTILE consecutive elements of shared memory (16-byte aligned), as 16-byte
+// CTILE consecutive elements of the panel (16-byte aligned), as 16-byte
 // loads and stores
 template <typename T>
 __device__ __forceinline__ void ld8(T (&v)[CTILE], const T* p) {
@@ -521,16 +532,19 @@ __device__ __forceinline__ void gstore8(T* row, int col, int n, bool vec,
 // factor with a zero lower triangle.  PROF (a separate instantiation, as
 // K1's profiled one): thread 0 of each CTA adds up its cycles by section
 // (CLUSTER_SECTIONS in linalg/chol.py) into prof[8 blockIdx.x + s].
-template <typename T, bool PROF>
+template <typename T, bool PROF, bool GPAN>
 __global__ void __launch_bounds__(CLUSTER_THREADS)
 chol_cluster_kernel(const T* __restrict__ gM, T* __restrict__ gR, int n,
-                    int b, long long* prof) {
+                    int b, T* __restrict__ gpan, long long* prof) {
   extern __shared__ __align__(16) float smf[];
-  T* pan = reinterpret_cast<T*>(smf);  // the panel, pan[r * pw + column]
   cg::cluster_group cl = cg::this_cluster();
   const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nb = (n + CTILE - 1) / CTILE, pw = CTILE * nb;
+  // the panel, pan[r * pw + column]: in the CTA's shared memory, or (GPAN)
+  // in its own slice of the global scratch gpan
+  T* pan = GPAN ? gpan + (size_t)blockIdx.x * b * pw
+                : reinterpret_cast<T*>(smf);
   const bool vec = n % (16 / (int)sizeof(T)) == 0;  // rows 16-byte aligned
   const size_t off = (size_t)(blockIdx.x / C) * n * n;
   const T* M = gM + off;
@@ -771,6 +785,96 @@ chol_solve_global_kernel(const T* __restrict__ gR, const T* __restrict__ gb,
   }
 }
 
+// The global solve past its reach ("wide" in linalg/chol.py:solve_plan):
+// f64 n > 14528, whose two vectors outgrow shared memory, and n >
+// GS_THREADS_MAX * GS_E_MAX, past the ring's entries a thread (a ring of 64
+// f32 entries spilled).  The same 2n steps in the same order, one barrier
+// a step, thread t owning entries t, t + GW_THREADS, ..., each quotient
+// written into its entry a step later.  What moves: R's diagonal comes
+// through a ring of D registers loaded D steps ahead, so that it is off
+// the chain; the owners read R on their updates, GW_CHUNK entries' loads
+// issued together before their updates (no ring: the entries a thread are
+// a runtime count); the column lives in shared memory while its n entries
+// fit (VSM: f64 n <= 29056, f32 n <= 58112), else in x's own column (v[l
+// k]: w, then y, then x), read and written through L1 and L2 beside R
+// (with the column in x's at every n the kernel ran 15-17% longer at f64
+// n = 14536 and f32 n = 16392).  What bounds it is one SM's memory
+// traffic: a step reads n - j entries of a row of R forward, and
+// backward j entries of a column, each in a sector of its own;
+// prefetching the next step's entries and chunks of 16 entries ran
+// slower, chunks of 32 spilled (PERF.md).
+constexpr int GW_THREADS = 512, GW_CHUNK = 8;
+
+template <typename T, bool VSM>
+__global__ void __launch_bounds__(GW_THREADS)
+chol_solve_wide_kernel(const T* __restrict__ gR, const T* __restrict__ gb,
+                       T* __restrict__ gx, int n, int k) {
+  constexpr int D = GS_DEPTH_MAX;
+  extern __shared__ __align__(16) float smf[];
+  const int tid = threadIdx.x;
+  const T* R = gR + (size_t)blockIdx.x * n * n;
+  const size_t boff = (size_t)blockIdx.x * n * k;
+  T* const xc = gx + boff + blockIdx.y;  // x's column, entry l at l k
+  // the column: entry l at v[l * ks]
+  T* const v = VSM ? reinterpret_cast<T*>(smf) : xc;
+  const size_t ks = VSM ? 1 : k;
+  // R's diagonal entry that combined step s divides by (forward j = s,
+  // backward l = 2n - 1 - s), 0 past the last step
+  auto diag = [&](int s) {
+    const int l = s < n ? s : 2 * n - 1 - s;
+    return l >= 0 ? R[(size_t)l * n + l] : T(0);
+  };
+  T dr[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) dr[d] = diag(d);
+  for (int l = tid; l < n; l += GW_THREADS)
+    v[l * ks] = gb[boff + (size_t)l * k + blockIdx.y];
+  __syncthreads();
+  T prev = T(0);  // the last step's quotient
+  for (int s0 = 0; s0 < 2 * n; s0 += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int s = s0 + d;
+      if (s >= 2 * n) break;
+      const bool fwd = s < n;
+      const int j = fwd ? s : 2 * n - 1 - s;  // the entry the step divides
+      const T q = div_rn(s == n ? prev : v[j * ks], dr[d]);
+      // the step's late write: y_{s-1} forward, x_{j+1} backward (none at
+      // s = n: y_{n-1} is unused)
+      const int late = s == n ? -1 : fwd ? s - 1 : j + 1;
+      const int hi = fwd ? n : min(n, j + 2);
+      for (int l0 = tid; l0 < hi; l0 += GW_THREADS * GW_CHUNK) {
+        T rv[GW_CHUNK], vv[GW_CHUNK];
+#pragma unroll
+        for (int w = 0; w < GW_CHUNK; ++w) {
+          const int l = l0 + GW_THREADS * w;
+          const bool upd = fwd ? l > j && l < n : l < j;
+          rv[w] = upd ? R[fwd ? (size_t)j * n + l : (size_t)l * n + j]
+                      : T(0);
+          vv[w] = upd ? v[l * ks] : T(0);
+        }
+#pragma unroll
+        for (int w = 0; w < GW_CHUNK; ++w) {
+          const int l = l0 + GW_THREADS * w;
+          if (fwd ? l > j && l < n : l < j)
+            v[l * ks] = fwd ? vv[w] - q * rv[w] : vv[w] - rv[w] * q;
+          else if (l == late)
+            v[l * ks] = prev;
+        }
+      }
+      prev = q;
+      dr[d] = diag(s + D);
+      __syncthreads();
+    }
+  }
+  if constexpr (VSM) {
+    for (int l = tid; l < n; l += GW_THREADS)
+      xc[(size_t)l * k] = l == 0 ? prev : v[l];
+  } else {
+    if (tid == 0) v[0] = prev;  // x_0
+  }
+}
+
 template <typename T>
 int launch_chol(const T* M, T* R, int B, int n, void* stream) {
   if (B == 0 || n == 0) return 0;
@@ -795,11 +899,11 @@ int launch_chol_solve_entry(const T* R, const T* b, T* x, int B, int n,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PROF>
-int launch_cluster(const T* M, T* R, int B, int n, int C, int b,
+template <typename T, bool PROF, bool GPAN>
+int launch_cluster(const T* M, T* R, int B, int n, int C, int b, T* panel,
                    cudaStream_t s, long long* prof) {
-  const int smem = (int)cluster_smem_bytes(n, sizeof(T), b);
-  auto kern = chol_cluster_kernel<T, PROF>;
+  const int smem = GPAN ? 0 : (int)cluster_smem_bytes(n, sizeof(T), b);
+  auto kern = chol_cluster_kernel<T, PROF, GPAN>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -815,7 +919,7 @@ int launch_cluster(const T* M, T* R, int B, int n, int C, int b,
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, M, R, n, b, prof);
+  e = cudaLaunchKernelEx(&cfg, kern, M, R, n, b, panel, prof);
   if (e != cudaSuccess) {
     cudaGetLastError();  // a refused launch leaves nothing to report later
     return (int)e;
@@ -823,16 +927,27 @@ int launch_cluster(const T* M, T* R, int B, int n, int C, int b,
   return (int)cudaGetLastError();
 }
 
+// panel: null for the panel in shared memory (b rows must fit a CTA), else
+// a 16-byte aligned global scratch of B C cluster_smem_bytes(n, es, b)
+// bytes, CTA i's panel at byte i cluster_smem_bytes(n, es, b)
 template <typename T>
-int launch_global(const T* M, T* R, int B, int n, int C, int b, void* stream,
-                  long long* prof) {
+int launch_global(const T* M, T* R, int B, int n, int C, int b, T* panel,
+                  void* stream, long long* prof) {
   if (C < 1 || C > CLUSTER_MAX || b < CTILE || b % CTILE ||
-      cluster_smem_bytes(n, sizeof(T), b) > 232448)
+      (panel ? (size_t)panel % 16 != 0
+             : cluster_smem_bytes(n, sizeof(T), b) > 232448))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  return prof ? launch_cluster<T, true>(M, R, B, n, C, b, s, prof)
-              : launch_cluster<T, false>(M, R, B, n, C, b, s, nullptr);
+  if (panel)
+    return prof ? launch_cluster<T, true, true>(M, R, B, n, C, b, panel, s,
+                                                prof)
+                : launch_cluster<T, false, true>(M, R, B, n, C, b, panel, s,
+                                                 nullptr);
+  return prof ? launch_cluster<T, true, false>(M, R, B, n, C, b, nullptr, s,
+                                               prof)
+              : launch_cluster<T, false, false>(M, R, B, n, C, b, nullptr, s,
+                                                nullptr);
 }
 
 template <typename T, int E>
@@ -866,6 +981,26 @@ int launch_solve_global(const T* R, const T* b, T* x, int B, int n, int k,
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T>
+int launch_solve_wide(const T* R, const T* b, T* x, int B, int n, int k,
+                      void* stream) {
+  if (B == 0 || n == 0 || k == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = (size_t)n * sizeof(T);
+  if (smem > 232448) {
+    chol_solve_wide_kernel<T, false><<<dim3(B, k), GW_THREADS, 0, s>>>(
+        R, b, x, n, k);
+    return (int)cudaGetLastError();
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      chol_solve_wide_kernel<T, true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  chol_solve_wide_kernel<T, true><<<dim3(B, k), GW_THREADS, smem, s>>>(
+      R, b, x, n, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry point takes the element type as a flag: f64 picks double.
@@ -876,15 +1011,17 @@ extern "C" int qp_chol(const void* M, void* R, int B, int n, int f64,
 }
 
 // the global-memory plan: a cluster of `cluster` CTAs a matrix, panels of
-// b rows, the trailing triangle in R; prof (8 B cluster int64s, or null)
-// takes the cycle counters of the profiled instantiation
+// b rows, the trailing triangle in R; panel (or null: shared memory) the
+// global scratch of the panels (launch_global); prof (8 B cluster int64s,
+// or null) takes the cycle counters of the profiled instantiation
 extern "C" int qp_chol_global(const void* M, void* R, int B, int n, int f64,
-                              int cluster, int b, void* prof, void* stream) {
+                              int cluster, int b, void* panel, void* prof,
+                              void* stream) {
   long long* pr = (long long*)prof;
   return f64 ? launch_global((const double*)M, (double*)R, B, n, cluster, b,
-                             stream, pr)
+                             (double*)panel, stream, pr)
              : launch_global((const float*)M, (float*)R, B, n, cluster, b,
-                             stream, pr);
+                             (float*)panel, stream, pr);
 }
 
 // the global-memory solve: threads a block and entries a thread as
@@ -898,6 +1035,16 @@ extern "C" int qp_chol_solve_global(const void* R, const void* b, void* x,
              : launch_solve_global((const float*)R, (const float*)b,
                                    (float*)x, B, n, k, threads, entries,
                                    stream);
+}
+
+// the global solve past its reach, at any n; x must not overlap b
+extern "C" int qp_chol_solve_wide(const void* R, const void* b, void* x,
+                                  int B, int n, int k, int f64,
+                                  void* stream) {
+  return f64 ? launch_solve_wide((const double*)R, (const double*)b,
+                                 (double*)x, B, n, k, stream)
+             : launch_solve_wide((const float*)R, (const float*)b,
+                                 (float*)x, B, n, k, stream);
 }
 
 // The shared-memory solve, `cols` right-hand sides per block.  kind 1:

@@ -9,16 +9,19 @@ so that kernel and twin agree bit for bit, and are what a CPU tensor runs.
     cholesky_upper(M)      M (B, n, n) SPD -> upper R with R'R = M
     cholesky_solve(R, b)   b (B, n) or (B, n, k) -> x with R'R x = b
 
-Both take float32 and float64.  Dispatch: a CPU tensor goes to the plain
-twin; a CUDA tensor goes to a kernel, in the memory plan `factor_plan` /
-`solve_plan` pick by n, dtype and SMEM_LIMIT: the matrix in one block's
-shared memory where it fits (f32 n <= 241, f64 n <= 170 for the factor),
-else in global memory, in the same order of operations: past shared
-memory the factor runs right-looking in panels across a thread block
-cluster, in the shape `global_plan` picks.  An input that no plan takes
-raises; nothing falls back to a library call or to the twin.
-Each wrapper counts its launches in `.launches`, and `KERNEL_LAUNCHES`
-counts them by kernel (the names of KERNELS).
+Both take float32 and float64, at any n.  Dispatch: a CPU tensor goes to
+the plain twin; a CUDA tensor goes to a kernel, in the memory plan
+`factor_plan` / `solve_plan` pick by n, dtype and SMEM_LIMIT: the matrix
+in one block's shared memory where it fits (f32 n <= 241, f64 n <= 170
+for the factor), else in global memory, in the same order of operations:
+past shared memory the factor runs right-looking in panels across a
+thread block cluster, in the shape `global_plan` picks, with each CTA's
+panel in its shared memory while a panel of 8 rows fits there (f32 n <=
+7264, f64 n <= 3632), else in a global scratch (the "wide" plans; the
+solve's likewise past its vectors' shared memory or its ring's entries).
+Only a dtype no kernel takes raises; nothing falls back to a library call
+or to the twin.  Each wrapper counts its launches in `.launches`, and
+`KERNEL_LAUNCHES` counts them by kernel (the names of KERNELS).
 """
 
 from __future__ import annotations
@@ -46,6 +49,9 @@ KERNELS = {
     ("factor", "smem", torch.float64): "chol_f64",
     ("factor", "global", torch.float32): "chol_global",
     ("factor", "global", torch.float64): "chol_global_f64",
+    # the cluster factor with its panels in a global scratch
+    ("factor", "wide", torch.float32): "chol_global_wide",
+    ("factor", "wide", torch.float64): "chol_global_wide_f64",
     ("solve", "smem", torch.float32): "chol_solve",
     ("solve", "smem", torch.float64): "chol_solve_f64",
     ("solve", "warp", torch.float64): "chol_solve_warp_f64",
@@ -54,6 +60,9 @@ KERNELS = {
     # the global plan with several right-hand sides (the polish's identity)
     ("solve", "global_cols", torch.float32): "chol_solve_global_cols",
     ("solve", "global_cols", torch.float64): "chol_solve_global_cols_f64",
+    # the global solve past its reach, any k (chol_solve_wide_kernel)
+    ("solve", "wide", torch.float32): "chol_solve_global_wide",
+    ("solve", "wide", torch.float64): "chol_solve_global_wide_f64",
 }
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
 
@@ -86,14 +95,31 @@ def _esize(dtype, name) -> int:
 
 
 def global_smem_bytes(n: int, dtype, b: int) -> int:
-    """Dynamic shared memory of a CTA of the cluster factor (csrc/chol.cu,
-    cluster_smem_bytes): the panel, b rows of CLUSTER_TILE * ceil(n /
-    CLUSTER_TILE) elements."""
+    """The panel of a CTA of the cluster factor (csrc/chol.cu,
+    cluster_smem_bytes), b rows of CLUSTER_TILE * ceil(n / CLUSTER_TILE)
+    elements: its dynamic shared memory, or (a wide plan) its slice of the
+    global scratch."""
     es = _esize(dtype, "cholesky_upper")
     return es * b * -(-n // CLUSTER_TILE) * CLUSTER_TILE
 
 
-GlobalPlan = collections.namedtuple("GlobalPlan", "cluster b")
+# the cluster factor's shape: CTAs a matrix, rows a panel, and where each
+# CTA's panel lives, "smem" (its shared memory) or "global" (its slice of a
+# scratch that the wrapper allocates: the wide plan)
+GlobalPlan = collections.namedtuple("GlobalPlan", "cluster b panel",
+                                    defaults=("smem",))
+WIDE_B = 32  # rows a panel of the wide plan
+
+
+def panel_scratch_bytes(B: int, n: int, dtype, plan: GlobalPlan) -> int:
+    """Bytes of the global scratch the cluster factor's wide plan takes
+    (csrc/chol.cu, launch_global): a panel for each of its B * cluster
+    CTAs, CTA i's at byte i * global_smem_bytes; 0 for panels in shared
+    memory."""
+    if plan.panel != "global":
+        return 0
+    return B * plan.cluster * global_smem_bytes(n, dtype, plan.b)
+
 
 # the global solve (csrc/chol.cu, chol_solve_global_kernel): threads a
 # block at most, entries a thread at most (the C side checks both), and
@@ -124,23 +150,27 @@ def global_plan(B: int, n: int, dtype, sms: int = 132) -> GlobalPlan:
     (C = 1 past sms matrices), so that every matrix runs at once, one CTA
     an SM, and panels of 32 rows (16 or 8 where 32 do not fit a CTA's
     shared memory).  At the general loop's B = 64 that is 2 CTAs a matrix.
-    Raises ValueError where not even a panel of 8 rows fits a CTA (f32 n
-    > 7264, f64 n > 3632)."""
+    Where not even a panel of 8 rows fits a CTA (f32 n > 7264, f64 n >
+    3632) each CTA's panel of WIDE_B rows lives in a global scratch (the
+    wide plan).  Raises ValueError only for a dtype no kernel takes."""
     C = max(c for c in (1, 2, 4, CLUSTER_MAX) if c == 1 or B * c <= sms)
     for b in (32, 16, 8):
         if global_smem_bytes(n, dtype, b) <= SMEM_LIMIT:
             return GlobalPlan(C, b)
-    raise ValueError(f"cholesky_upper: n={n} {dtype} fits no plan (a panel "
-                     f"of 8 rows takes {global_smem_bytes(n, dtype, 8)} "
-                     f"bytes of shared memory, over {SMEM_LIMIT})")
+    return GlobalPlan(C, WIDE_B, "global")
 
 
 def factor_plan(n: int, dtype) -> str:
     """The factor's memory plan: "smem" while the n x n matrix fits one
-    block's shared memory, else "global" (which uses none); raises
-    ValueError for a dtype no kernel takes."""
+    block's shared memory, else "global" (the cluster factor) while a CTA's
+    shared memory holds a panel of 8 rows, else "wide" (the cluster factor,
+    its panels in a global scratch); raises ValueError for a dtype no
+    kernel takes."""
     es = _esize(dtype, "cholesky_upper")
-    return "smem" if n * n * es <= SMEM_LIMIT else "global"
+    if n * n * es <= SMEM_LIMIT:
+        return "smem"
+    fits = global_smem_bytes(n, dtype, CLUSTER_TILE) <= SMEM_LIMIT
+    return "global" if fits else "wide"
 
 
 def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
@@ -150,7 +180,11 @@ def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
     (f64, one right-hand side, n even: a warp a matrix, R in shared
     memory), "entry" (R and up to 64 columns in shared memory: f64 with
     several columns or odd n, f32 n not a multiple of PANEL) or "global"
-    (one column a block); raises ValueError where none takes the input."""
+    (one column a block, the column and R's diagonal in shared memory,
+    while they fit and n <= GS_N_MAX) or "wide" (one column a block, any
+    n: R's diagonal through registers, the column in shared memory while
+    it fits, else in x's); raises ValueError only for a dtype no kernel
+    takes."""
     es = _esize(dtype, "cholesky_solve")
     if dtype == torch.float32 and n % PANEL == 0:
         cols = 64 if B * -(-k // 64) >= sms else 32
@@ -162,15 +196,11 @@ def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
     cols = min(k, _SOLVE_COLS)
     if (n * n + n * cols) * es <= SMEM_LIMIT:
         return "entry", cols
-    # the global plan's two n-vectors in shared memory, and at most
-    # GS_E_MAX entries of each a thread (f32 n > 16384 only; f64 runs out
-    # of shared memory first)
+    # the global plan's two n-vectors in shared memory (f64 n <= 14528),
+    # and at most GS_E_MAX entries of each a thread (n <= GS_N_MAX)
     if 2 * n * es <= SMEM_LIMIT and n <= GS_N_MAX:
         return "global", 1
-    raise ValueError(f"cholesky_solve: n={n} {dtype} fits no plan (the "
-                     f"global plan takes n <= {GS_N_MAX} and its "
-                     f"{2 * n * es} bytes of shared memory are over "
-                     f"{SMEM_LIMIT})")
+    return "wide", 1
 
 
 def solve_kernel(plan: str, k: int, dtype) -> str:
@@ -179,6 +209,8 @@ def solve_kernel(plan: str, k: int, dtype) -> str:
     solves of several columns (the polish's identity)."""
     if plan == "global":
         key = "global_cols" if k > 1 else "global"
+    elif plan == "wide":
+        key = "wide"
     else:
         key = "warp" if plan == "warp" else "smem"
     return KERNELS["solve", key, dtype]
@@ -239,15 +271,19 @@ CLUSTER_SECTIONS = ("gather", "panel", "trailing", "cluster_wait", "write")
 def _launch_global(M: torch.Tensor, R: torch.Tensor, plan: GlobalPlan,
                    prof: torch.Tensor | None = None) -> int:
     """Launch the cluster factor on contiguous CUDA M and R in the shape
-    `plan`; returns the C entry point's error code.  prof, an int64 CUDA
-    tensor of (B * plan.cluster, 8), runs the profiled instantiation, which
-    takes each CTA's cycles by section (CLUSTER_SECTIONS, counted by its
-    thread 0)."""
+    `plan` (a wide plan's panels in a scratch allocated here); returns the
+    C entry point's error code.  prof, an int64 CUDA tensor of (B *
+    plan.cluster, 8), runs the profiled instantiation, which takes each
+    CTA's cycles by section (CLUSTER_SECTIONS, counted by its thread 0)."""
     B, n, _ = M.shape
+    nbytes = panel_scratch_bytes(B, n, M.dtype, plan)
+    # the stream orders the kernel before any reuse of the freed scratch
+    pan = torch.empty(nbytes // M.element_size(), dtype=M.dtype,
+                      device=M.device) if nbytes else None
     return kernels().qp_chol_global(
         M.data_ptr(), R.data_ptr(), B, n, int(M.dtype == torch.float64),
-        plan.cluster, plan.b, None if prof is None else prof.data_ptr(),
-        _stream())
+        plan.cluster, plan.b, None if pan is None else pan.data_ptr(),
+        None if prof is None else prof.data_ptr(), _stream())
 
 
 def cholesky_upper(M: torch.Tensor) -> torch.Tensor:
@@ -261,7 +297,7 @@ def cholesky_upper(M: torch.Tensor) -> torch.Tensor:
                          f"{tuple(M.shape)}")
     plan = factor_plan(n, M.dtype)
     gplan = None
-    if plan == "global":
+    if plan != "smem":
         sms = torch.cuda.get_device_properties(
             M.device).multi_processor_count
         gplan = global_plan(B, n, M.dtype, sms)
@@ -311,6 +347,8 @@ def cholesky_solve(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             rc = lib.qp_chol_solve_global(*ptrs,
                                           *global_solve_shape(n, R.dtype),
                                           int(f64), _stream())
+        elif plan == "wide":
+            rc = lib.qp_chol_solve_wide(*ptrs, int(f64), _stream())
         else:
             rc = lib.qp_chol_solve(*ptrs, cols, _SOLVE_KINDS[plan],
                                    int(f64), _stream())

@@ -1,12 +1,12 @@
 """Memory-plan probes of K1's streaming tier (counterpart of the two Pallas
 probes of scripts/probe_mosaic_scratch.py, :42-93 and :106-175).
 
-    scratch_probe(seed, n)   seed (B,) -> (B, n): an (n, n) global scratch
-                             per problem filled with seed + row, 8 rank-1
-                             updates M -= v v' (v = iota / n) made as the
-                             rank-1 plan the streaming tier's Cholesky used
-                             through its first port made them, M's row sums
-                             out
+    scratch_probe(seed, n)   seed (B,) -> (B, n): an (n, n) scratch per
+                             problem, kept on chip (its rows dealt to
+                             blocks, scratch_rows(n) a block, in shared
+                             memory), filled with seed + row, 8 rank-1
+                             updates M -= v v' (v = iota / n) made a pass
+                             each, M's row sums out
     assembly_probe(A, w)     A (B, m, n), w (B, m) -> (B, n): the upper
                              triangle of M = A' diag(w) A by the streaming
                              tier's own Schur assembly (A in row panels
@@ -15,7 +15,7 @@ probes of scripts/probe_mosaic_scratch.py, :42-93 and :106-175).
 
 The CUDA source is csrc/probe_stream.cu; the plain versions below are what
 a CPU tensor runs.  `measure` times both kernels at one shape and reports
-the bytes their plan moves through global memory per second;
+the bytes their plan moves through its scratch per second;
 `against_plain` holds them against their plain versions and times two
 library yardsticks of the assembly.  Run on the card:
 
@@ -31,10 +31,21 @@ import numpy as np
 import torch
 
 from ._build import check_launch, kernels
+from .linalg.chol import SMEM_LIMIT
 
 SIZES = (128, 224, 256, 352)
 BATCH = 128
 RANK1_UPDATES = 8
+# the scratch probe's rows of M a block (csrc/probe_stream.cu)
+SCRATCH_ROWS = 32
+
+
+def scratch_rows(n: int) -> int:
+    """Rows of a problem's M a block of the scratch probe holds in shared
+    memory beside the row of k / n (csrc/probe_stream.cu, scratch_rows):
+    SCRATCH_ROWS, fewer where they would not fit SMEM_LIMIT; 0 where not
+    even one row fits, an n the kernel refuses."""
+    return min(SCRATCH_ROWS, SMEM_LIMIT // (4 * max(n, 1)) - 1)
 
 
 def scratch_probe_plain(seed: torch.Tensor, n: int) -> torch.Tensor:
@@ -75,17 +86,21 @@ def _cuda_f32(name, *tensors):
 
 def scratch_probe(seed: torch.Tensor, n: int) -> torch.Tensor:
     """The scratch probe: its kernel for a CUDA tensor, else the plain
-    version.  `scratch_probe.launches` counts kernel launches."""
+    version.  `scratch_probe.launches` counts kernel launches.  The kernel
+    takes n while one row of M and the row of k / n fit a block's shared
+    memory (n <= 29056) and raises past it."""
     if seed.device.type == "cpu":
         return scratch_probe_plain(seed, n)
     _cuda_f32("scratch_probe", seed)
+    if scratch_rows(n) < 1:
+        raise ValueError(f"scratch_probe: a row of n={n} floats does not "
+                         f"fit {SMEM_LIMIT} bytes of shared memory")
     seed = seed.contiguous()
     B = seed.shape[0]
-    M = torch.empty((B, n, n), dtype=torch.float32, device=seed.device)
     out = torch.empty((B, n), dtype=torch.float32, device=seed.device)
     with torch.cuda.device(seed.device):
         rc = kernels().qp_scratch_probe(
-            seed.data_ptr(), M.data_ptr(), out.data_ptr(), B, n,
+            seed.data_ptr(), out.data_ptr(), B, n,
             torch.cuda.current_stream().cuda_stream)
     check_launch("qp_scratch_probe", rc)
     scratch_probe.launches += 1
@@ -141,11 +156,12 @@ def assembly_passes(n: int) -> int:
 
 
 def plan_bytes(n: int, m: int, B: int = BATCH) -> dict:
-    """Bytes each probe's plan moves through global memory: the scratch
-    probe writes M, reads and writes it in each rank-1 update and reads it
-    for the row sums; the assembly probe reads w once and A once a pass,
-    writes the upper 8x8 tiles of M and reads n^2 entries back for the row
-    sums of the completion."""
+    """Bytes each probe's plan moves through its scratch: the scratch probe
+    writes M, reads and writes it in each rank-1 update and reads it for
+    the row sums, all in shared memory; the assembly probe reads w once
+    and A once a pass from global memory, writes the upper 8x8 tiles of M
+    there and reads n^2 entries back for the row sums of the
+    completion."""
     nb = -(-n // 8)
     return dict(scratch=4 * B * n * n * (2 + 2 * RANK1_UPDATES),
                 assembly=4 * B * (assembly_passes(n) * m * n + m

@@ -163,7 +163,9 @@ def test_cuda_solve_is_bit_identical_to_plain(B, n, k):
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     """Types and shapes no plan takes raise; since the global plan, f64
-    and n past shared memory are taken."""
+    and n past shared memory are taken, and since the wide plans every n:
+    a solve past the global plan's shared vectors runs (on a random upper
+    R with a dominant diagonal) and is counted under the wide plan."""
     dev = _cuda()
     with pytest.raises(ValueError):
         cholesky_upper(torch.eye(4, dtype=torch.float16, device=dev)[None])
@@ -173,11 +175,13 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         cholesky_solve(torch.eye(4, device=dev)[None],
                        torch.ones((1, 4), dtype=torch.float64, device=dev))
     big = chol.SMEM_LIMIT // 16 + 1  # the global plan's vectors over 227 KB
-    with pytest.raises(ValueError, match="fits no plan"):
-        cholesky_solve(torch.empty((1, big, big), dtype=torch.float64,
-                                   device=dev),
-                       torch.empty((1, big), dtype=torch.float64,
-                                   device=dev))
+    R = torch.triu(torch.rand((1, big, big), dtype=torch.float64,
+                              device=dev))
+    R.diagonal(dim1=1, dim2=2).fill_(big)
+    b = torch.ones((1, big), dtype=torch.float64, device=dev)
+    before = chol.KERNEL_LAUNCHES["chol_solve_global_wide_f64"]
+    assert torch.equal(cholesky_solve(R, b), cholesky_solve_plain(R, b))
+    assert chol.KERNEL_LAUNCHES["chol_solve_global_wide_f64"] == before + 1
 
 
 @pytest.mark.parametrize("n,dtype,plan", [
@@ -185,11 +189,14 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     (242, torch.float32, "global"), (480, torch.float32, "global"),
     (64, torch.float64, "smem"), (170, torch.float64, "smem"),
     (171, torch.float64, "global"), (224, torch.float64, "global"),
-    (chol.SMEM_LIMIT // 16 + 1, torch.float64, "global")])
+    (3632, torch.float64, "global"), (3633, torch.float64, "wide"),
+    (7264, torch.float32, "global"), (7265, torch.float32, "wide"),
+    (chol.SMEM_LIMIT // 16 + 1, torch.float64, "wide")])
 def test_factor_plan_selection(n, dtype, plan):
     """The factor keeps the matrix in shared memory while n x n elements
-    fit 227 KB (f32 n <= 241, f64 n <= 170), else in global memory, which
-    takes every n."""
+    fit 227 KB (f32 n <= 241, f64 n <= 170), else in global memory, with
+    each CTA's panel in its shared memory while 8 rows fit (f32 n <= 7264,
+    f64 n <= 3632), else in a global scratch: every n."""
     assert chol.factor_plan(n, dtype) == plan
 
 
@@ -212,13 +219,19 @@ def test_factor_plan_selection(n, dtype, plan):
     (64, 480, 480, torch.float32, ("global", 1)),
     (64, 256, 256, torch.float32, ("global", 1)),
     (8, 200, 3, torch.float64, ("global", 1)),
-    (8, 200, 1, torch.float64, ("global", 1))])
+    (8, 200, 1, torch.float64, ("global", 1)),
+    (1, 14528, 1, torch.float64, ("global", 1)),
+    (1, 14529, 1, torch.float64, ("wide", 1)),
+    (1, 16384, 2, torch.float32, ("global", 1)),
+    (1, 16385, 2, torch.float32, ("wide", 1))])
 def test_solve_plan_selection(B, n, k, dtype, plan):
     """The solve: the blocked kernel for f32 n a multiple of 8 whose plan
     fits, a warp a matrix for f64 one-vector solves of even n that fit,
-    else R and the columns in shared memory, else global memory.  The
-    global plan counts its one-vector solves and its solves of several
-    columns (the polish's identity from f32 n = 212) apart."""
+    else R and the columns in shared memory, else global memory: the
+    column and R's diagonal in shared memory while they fit and n <= 16384,
+    else the wide plan (every n).  The global plan counts its one-vector
+    solves and its solves of several columns (the polish's identity from
+    f32 n = 212) apart."""
     assert chol.solve_plan(B, n, k, dtype, sms=132) == plan
     if plan[0] == "global":
         assert chol.solve_kernel(plan[0], k, dtype) == (
@@ -237,13 +250,15 @@ def test_plans_raise_on_types_no_kernel_takes(dtype):
 
 def test_dispatch_raises_rather_than_falls_back():
     """An input that is not on the CPU reaches a kernel or raises: with no
-    plan it raises before anything is built or launched, and never runs
-    the twin or a library call (a meta tensor stands in for a card's)."""
+    kernel (a device that is not a card, a dtype) it raises before
+    anything is built or launched, and never runs the twin or a library
+    call (a meta tensor stands in for a card's).  At every n of a kernel's
+    dtype a plan takes the input (the wide ones past the others)."""
     big = chol.SMEM_LIMIT // 16 + 1
     before = (cholesky_upper.launches, cholesky_solve.launches)
     M = torch.empty((2, big, big), dtype=torch.float64, device="meta")
-    with pytest.raises(ValueError, match="fits no plan"):
-        chol.solve_plan(2, big, 1, torch.float64)
+    assert chol.solve_plan(2, big, 1, torch.float64) == ("wide", 1)
+    assert chol.factor_plan(big, torch.float64) == "wide"
     with pytest.raises(ValueError):
         cholesky_upper(M)
     with pytest.raises(ValueError):
@@ -324,8 +339,8 @@ def test_cuda_solve_plans_are_bit_identical_to_plain(B, n, k, dtype):
     solve at the general loop's (64, 480), at odd n (rows of R not 16-byte
     aligned), at the identity's smallest global shape past f32 n = 211,
     and at n = 512 E +- 1 where E steps up to 32 (f64 8192, f32 16384,
-    whose n + 1 fits no plan; a random upper R with a strong diagonal: no
-    factor that large)."""
+    whose n + 1 takes the wide plan; a random upper R with a strong
+    diagonal: no factor that large)."""
     dev = _cuda()
     np_dt = np.float64 if dtype == torch.float64 else np.float32
     if n > 1000:

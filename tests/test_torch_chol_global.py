@@ -18,12 +18,20 @@ by plain emulations of their schedules, and their plans:
       s into a ring of D registers, every quotient written into its entry a
       step later, no thread writing an entry another reads in that step:
       bit for bit cholesky_solve_plain;
+  (c') the wide solve past it (chol_solve_wide_kernel): the column in x's
+      own column, R's diagonal through a ring, each thread's entries read
+      and updated in chunks, the same late writes, entry 0 written last:
+      bit for bit cholesky_solve_plain;
   (d) the plans: shapes, shared memory within SMEM_LIMIT for every n they
-      admit, and a ValueError where nothing fits.
+      admit, the wide plans past it (their scratch mirrored from the C
+      side), and a ValueError only for a dtype no kernel takes.
 
 On a card: a cluster launch the card refuses raising, and the next launch
-running clean (the factor and the solve against their twins are in
-test_torch_chol.py)."""
+running clean; the wide plans at the sizes the other plans do not take,
+and the wide factor forced at n = 480 equal to the plan it replaces there,
+each against the twin run on the card bit for bit; solve_batch at f64
+randomQP n = 3640 through the wide factor (the factor and the solve of
+the other plans against their twins are in test_torch_chol.py)."""
 
 import re
 from pathlib import Path
@@ -228,6 +236,86 @@ def test_global_solve_order_is_bit_identical(n, nt, E, D, dtype):
     assert np.array_equal(_solve_global(R.numpy(), b, nt, E, D), want)
 
 
+def _solve_wide(R, b, nt, W, D, in_x):
+    """chol_solve_wide_kernel in scalar steps of R's precision, for each
+    matrix and column of b (B, n, k): the column lives in x's own column
+    (`in_x`: x starts as b's) or beside it (written to x at the end), R's
+    diagonal comes through a ring of D slots filled D steps ahead, thread
+    t's entries t + nt w are read in chunks of W (every load of a chunk
+    before its updates) and updated, entries past the backward step's last
+    one skipped.  Every write is asserted to be by the entry's owner, not
+    to the entry the step reads, and the step's quotient to land in its
+    entry one step later (entry 0 after the last step)."""
+    f = R.dtype.type
+    Bm, n, k = b.shape
+    x = b.copy() if in_x else np.full_like(b, np.nan)
+
+    def diag(Rm, s):
+        i = s if s < n else 2 * n - 1 - s
+        return Rm[i, i] if i >= 0 else f(0)
+
+    for m in range(Bm):
+        Rm = R[m]
+        for c in range(k):
+            # a view where the kernel works in x's column
+            v = x[m, :, c] if in_x else b[m, :, c].copy()
+            ring = [diag(Rm, d) for d in range(D)]
+            prev, quot = f(0), {}
+            for s in range(2 * n):
+                fwd = s < n
+                read = s if fwd else 2 * n - 1 - s
+                q = f((prev if s == n else v[read]) / ring[s % D])
+                late = -1 if s == n else (s - 1 if fwd else read + 1)
+                hi = n if fwd else min(n, read + 2)
+                for t in range(nt):
+                    for l0 in range(t, hi, nt * W):
+                        ls = [l0 + nt * w for w in range(W)]
+                        upd = [(i > read and i < n) if fwd else i < read
+                               for i in ls]
+                        got = [(Rm[read, i] if fwd else Rm[i, read],
+                                v[i]) if u else (f(0), f(0))
+                               for i, u in zip(ls, upd)]
+                        for i, u, (r, vi) in zip(ls, upd, got):
+                            if u:
+                                new = f(vi - f(q * r)) if fwd \
+                                    else f(vi - f(r * q))
+                            elif i == late:
+                                assert quot[i] == prev
+                                assert s == (i + 1 if fwd else 2 * n - i)
+                                new = prev
+                            else:
+                                continue
+                            assert i < n and i % nt == t and i != read
+                            v[i] = new
+                ring[s % D] = diag(Rm, s + D)
+                quot[read] = q
+                prev = q
+            v[0] = prev
+            x[m, :, c] = v
+    return x
+
+
+@pytest.mark.parametrize("in_x", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,nt,W,D", [(1, 32, 8, 8), (2, 1, 1, 1),
+                                      (9, 4, 2, 3), (37, 4, 8, 8),
+                                      (64, 16, 8, 8), (64, 32, 2, 5),
+                                      (70, 8, 4, 8)])
+def test_wide_solve_order_is_bit_identical(n, nt, W, D, dtype, in_x):
+    """Ragged ownership, several chunks a thread, rings deeper than the
+    solve and depths that do not divide n; one and two columns, one of
+    them an identity column; the column in shared memory and in x's."""
+    M = _spd(2, n, dtype, seed=50 + n)
+    R = cholesky_upper_plain(M)
+    b = np.random.default_rng(51).standard_normal((2, n, 2)).astype(dtype)
+    b[1, :, 1] = np.eye(n, dtype=dtype)[:, n // 2]
+    want = cholesky_solve_plain(R, torch.from_numpy(b)).numpy()
+    assert np.array_equal(_solve_wide(R.numpy(), b, nt, W, D, in_x), want)
+    assert np.array_equal(
+        _solve_wide(R.numpy(), b[:, :, :1].copy(), nt, W, D, in_x),
+        want[:, :, :1])
+
+
 _CHOL_CU = Path(chol.__file__).resolve().parent.parent / "csrc" / "chol.cu"
 
 
@@ -270,16 +358,25 @@ def test_global_solve_shape_fits_every_n(dtype):
 
 
 def test_global_solve_takes_n_up_to_its_largest_e():
-    """f64 runs out of shared memory (n > 14528) before the kernel's
-    largest E (n > 16384); f32 n past 16384 fits no plan."""
+    """The global plan takes n up to its largest E (f32 16384), or while
+    its two vectors fit shared memory (f64 14528); past either the wide
+    plan takes every n, one column or several, under its own name.  Only
+    a dtype no kernel takes raises."""
     assert chol.solve_plan(1, chol.GS_N_MAX, 1, torch.float32)[0] == "global"
     assert chol.global_solve_shape(chol.GS_N_MAX, torch.float32) == (512, 32)
     assert chol.solve_plan(1, 14528, 1, torch.float64)[0] == "global"
-    for n, dtype in ((chol.GS_N_MAX + 1, torch.float32), (29056,
+    for n, dtype in ((chol.GS_N_MAX + 1, torch.float32), (16392,
                                                           torch.float32),
-                     (14529, torch.float64)):
-        with pytest.raises(ValueError, match="fits no plan"):
-            chol.solve_plan(1, n, 1, dtype)
+                     (29056, torch.float32), (14529, torch.float64),
+                     (14536, torch.float64), (10 ** 6, torch.float64)):
+        for k in (1, 2, n):
+            assert chol.solve_plan(64, n, k, dtype) == ("wide", 1)
+            assert chol.solve_kernel("wide", k, dtype) == (
+                "chol_solve_global_wide" if dtype == torch.float32
+                else "chol_solve_global_wide_f64")
+    for n in (1, 480, 10 ** 6):
+        with pytest.raises(ValueError, match="no kernel takes"):
+            chol.solve_plan(1, n, 1, torch.float16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -294,6 +391,8 @@ def test_global_plan_fits_every_n_it_admits(B, dtype):
         if chol.factor_plan(n, dtype) != "global":
             continue
         p = chol.global_plan(B, n, dtype, sms=132)
+        assert p.panel == "smem"
+        assert chol.panel_scratch_bytes(B, n, dtype, p) == 0
         assert p.cluster == max(c for c in (1, 2, 4, 8)
                                 if c == 1 or B * c <= 132)
         smem = chol.global_smem_bytes(n, dtype, p.b)
@@ -316,26 +415,84 @@ def test_own_tiles_deal_each_trailing_tile_once(q, nb, C):
 
 
 @pytest.mark.parametrize("B,n,dtype,want", [
-    (64, 480, torch.float32, (2, 32)),
-    (64, 480, torch.float64, (2, 32)),
-    (128, 224, torch.float64, (1, 32)),
-    (64, 300, torch.float32, (2, 32)),
-    (64, 171, torch.float64, (2, 32)),
-    (8, 480, torch.float64, (8, 32)),
-    (200, 1024, torch.float64, (1, 16))])
+    (64, 480, torch.float32, (2, 32, "smem")),
+    (64, 480, torch.float64, (2, 32, "smem")),
+    (128, 224, torch.float64, (1, 32, "smem")),
+    (64, 300, torch.float32, (2, 32, "smem")),
+    (64, 171, torch.float64, (2, 32, "smem")),
+    (8, 480, torch.float64, (8, 32, "smem")),
+    (200, 1024, torch.float64, (1, 16, "smem")),
+    (1, 3640, torch.float64, (8, chol.WIDE_B, "global")),
+    (2, 3640, torch.float64, (8, chol.WIDE_B, "global")),
+    (1, 7272, torch.float32, (8, chol.WIDE_B, "global"))])
 def test_global_plan_choices(B, n, dtype, want):
     """The general loop's randomQP n=480 at B = 64, at f32 and f64, is the
     shape tools/chol_plans.py measured fastest (PERF.md); the others follow
-    the same rule."""
+    the same rule, the wide plan's panels in a global scratch."""
     assert tuple(chol.global_plan(B, n, dtype, sms=132)) == want
 
 
 def test_global_plan_raises_where_nothing_fits():
-    assert chol.global_plan(1, 3632, torch.float64).b == 8
-    assert chol.global_plan(1, 7264, torch.float32).b == 8
-    for n, dtype in ((3633, torch.float64), (7265, torch.float32)):
-        with pytest.raises(ValueError, match="fits no plan"):
-            chol.global_plan(1, n, dtype)
+    """Past the last n whose panel of 8 rows fits a CTA (f64 3632, f32
+    7264) the wide plan takes the factor, its scratch a panel of WIDE_B
+    rows a CTA (csrc/chol.cu, cluster_smem_bytes, CTA i's at byte i times
+    that); only a dtype fits no plan."""
+    assert chol.global_plan(1, 3632, torch.float64) == (8, 8, "smem")
+    assert chol.global_plan(1, 7264, torch.float32) == (8, 8, "smem")
+    assert chol.factor_plan(3632, torch.float64) == "global"
+    assert chol.factor_plan(7264, torch.float32) == "global"
+    for n, dtype in ((3633, torch.float64), (7265, torch.float32),
+                     (3640, torch.float64), (7272, torch.float32),
+                     (50000, torch.float64)):
+        es = 4 if dtype == torch.float32 else 8
+        assert chol.factor_plan(n, dtype) == "wide"
+        for B in (1, 2, 64):
+            p = chol.global_plan(B, n, dtype)
+            assert p.panel == "global" and p.b == chol.WIDE_B
+            panel = es * p.b * TILE * -(-n // TILE)
+            assert chol.global_smem_bytes(n, dtype, p.b) == panel
+            assert chol.panel_scratch_bytes(B, n, dtype, p) == \
+                B * p.cluster * panel
+        assert chol.KERNELS["factor", "wide", dtype] == (
+            "chol_global_wide" if es == 4 else "chol_global_wide_f64")
+    for n in (480, 3640):
+        with pytest.raises(ValueError, match="no kernel takes"):
+            chol.global_plan(1, n, torch.float16)
+        with pytest.raises(ValueError, match="no kernel takes"):
+            chol.factor_plan(n, torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_factor_plans_meet_where_the_panel_leaves_shared_memory(dtype):
+    """factor_plan says "wide" exactly where global_plan puts the panels in
+    a global scratch, and a panel in shared memory always fits a CTA."""
+    last = 3632 if dtype == torch.float64 else 7264
+    for n in range(last - 40, last + 41):
+        plan, p = chol.factor_plan(n, dtype), chol.global_plan(64, n, dtype)
+        assert (plan == "wide") == (p.panel == "global") == (n > last)
+        if p.panel == "smem":
+            assert chol.global_smem_bytes(n, dtype, p.b) <= chol.SMEM_LIMIT
+
+
+def test_wide_plans_mirror_the_c_side():
+    """The C side's panel size and offsets are the ones chol.py allocates
+    (panel_scratch_bytes), its wide solve's threads a block a multiple of
+    32, and every new entry point's signature is bound."""
+    from qpalm_tpu_torch import _build
+
+    src = _CHOL_CU.read_text()
+    assert "return (size_t)b * ((n + CTILE - 1) / CTILE) * CTILE * es;" in src
+    assert "pan = GPAN ? gpan + (size_t)blockIdx.x * b * pw" in src
+    assert "const int nb = (n + CTILE - 1) / CTILE, pw = CTILE * nb;" in src
+    hit = re.search(r"\bCTILE = (\d+)", src)
+    assert hit and int(hit.group(1)) == TILE
+    hit = re.search(r"GW_THREADS = (\d+), GW_CHUNK = (\d+)", src)
+    assert hit and int(hit.group(1)) % 32 == 0 and int(hit.group(2)) >= 1
+    # the wide solve's column in shared memory while n elements fit
+    body = src[src.index("int launch_solve_wide("):]
+    assert f"if (smem > {chol.SMEM_LIMIT})" in body[:body.index("\n}\n")]
+    assert len(_build._SIGNATURES["qp_chol_global"]) == 10
+    assert len(_build._SIGNATURES["qp_chol_solve_wide"]) == 8
 
 
 def test_warp_plan_takes_f64_one_vector_of_even_n():
@@ -370,7 +527,7 @@ def test_cuda_refused_cluster_shape_raises():
             check_launch("qp_chol_global", chol._launch_global(M, R, plan))
     with pytest.raises(RuntimeError, match="CUDA error"):
         check_launch("qp_chol_global", kernels().qp_chol_global(
-            M.data_ptr(), R.data_ptr(), 2 ** 30, 300, 0, 2, 32, None,
+            M.data_ptr(), R.data_ptr(), 2 ** 30, 300, 0, 2, 32, None, None,
             torch.cuda.current_stream().cuda_stream))
     torch.cuda.synchronize()
     assert not R.any()
@@ -379,3 +536,89 @@ def test_cuda_refused_cluster_shape_raises():
                                                             M.dtype)))
     torch.cuda.synchronize()
     assert torch.equal(R, cholesky_upper_plain(M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n,dtype", [(1, 3640, torch.float64),
+                                       (2, 3640, torch.float64),
+                                       (1, 7272, torch.float32)])
+def test_cuda_wide_factor_is_bit_identical_to_plain(B, n, dtype):
+    """The sizes past a CTA's panel of 8 rows: the wide plan, counted
+    under its own name, bit for bit the twin run on the card."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(60 + B)
+    G = torch.randn((B, n, n), generator=g, device="cuda", dtype=dtype)
+    M = G @ G.transpose(1, 2) + n * torch.eye(n, device="cuda", dtype=dtype)
+    del G
+    assert chol.factor_plan(n, dtype) == "wide"
+    name = chol.KERNELS["factor", "wide", dtype]
+    before = chol.KERNEL_LAUNCHES[name]
+    R = chol.cholesky_upper(M)
+    assert chol.KERNEL_LAUNCHES[name] == before + 1
+    assert torch.equal(R, cholesky_upper_plain(M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_cuda_wide_factor_forced_equals_todays_plan(dtype):
+    """At the general loop's (64, 480, 480) the wide plan, forced, gives
+    the bits of the plan it replaces there (and of the twin)."""
+    _cuda()
+    M = _spd(64, 480, dtype, seed=61).cuda()
+    today = chol.global_plan(64, 480, M.dtype)
+    assert today.panel == "smem"
+    R0, R1 = torch.empty_like(M), torch.empty_like(M)
+    for R, plan in ((R0, today), (R1, today._replace(panel="global"))):
+        assert chol._launch_global(M, R, plan) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(R1, R0)
+    assert torch.equal(R0, cholesky_upper_plain(M))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype,k", [
+    (14536, torch.float64, 1), (14536, torch.float64, 2),
+    (16392, torch.float32, 1), (16392, torch.float32, 2),
+    (29064, torch.float64, 1)])
+def test_cuda_wide_solve_is_bit_identical_to_plain(n, dtype, k):
+    """Past the global solve's shared vectors (f64) and its ring's entries
+    (f32): the wide plan, bit for bit the twin run on the card, the column
+    in shared memory, and past it (f64 n > 29056) in x's; R a random upper
+    triangle with a dominant diagonal (no factor that large)."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(62 + k)
+    R = torch.triu(torch.rand((1, n, n), generator=g, device="cuda",
+                              dtype=dtype) - 0.5)
+    R.diagonal(dim1=1, dim2=2).fill_(n)
+    shape = (1, n) if k == 1 else (1, n, k)
+    b = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    assert chol.solve_plan(1, n, k, dtype) == ("wide", 1)
+    name = chol.solve_kernel("wide", k, dtype)
+    before = chol.KERNEL_LAUNCHES[name]
+    x = chol.cholesky_solve(R, b)
+    assert chol.KERNEL_LAUNCHES[name] == before + 1
+    assert torch.equal(x, cholesky_solve_plain(R, b))
+
+
+@pytest.mark.cuda
+def test_cuda_solve_batch_f64_runs_past_the_shared_panel():
+    """solve_batch at the default Settings() (f64) on randomQP n = 3640
+    (m = n): n_pad 3640 is past the last n whose panel fits a CTA, so the
+    general loop factors through the wide plan; the lane is solved and
+    the f64 referee holds its KKT residuals within the settings' eps."""
+    _cuda()
+    from qpalm_tpu_torch import referee
+    from qpalm_tpu_torch.batch import solve_batch, stack_problems
+    from qpalm_tpu_torch.types import QPData, Settings
+    from qpalm_tpu_torch.workloads import random_qp
+
+    s = Settings()
+    probs = [random_qp(3640)]
+    chol.KERNEL_LAUNCHES.clear()
+    res = solve_batch(probs, s, device="cuda")
+    assert chol.KERNEL_LAUNCHES["chol_global_wide_f64"] > 0
+    assert int(res.status[0]) == 1
+    d64 = QPData(*(a.numpy() for a in stack_problems(probs, np.float64)))
+    viol = referee.check(*d64, res.x.cpu().numpy(), res.y.cpu().numpy(),
+                         s.eps_abs, s.eps_rel)[0]
+    assert viol[0] <= 1.0

@@ -162,3 +162,90 @@ def test_probe_plain_versions_match_the_script(n):
         got = fn(A, w).double().numpy()
         assert np.abs(got - M.sum(-1)).max() <= 1e-5 * np.abs(M.sum(-1)).max()
     assert probe.scratch_probe.launches == probe.assembly_probe.launches == 0
+
+
+def _scratch_probe_blocks(seed, n, rows):
+    """The on-chip scratch probe (csrc/probe_stream.cu,
+    scratch_probe_kernel) in float32 numpy: each problem's rows dealt to
+    blocks of `rows`, each block's rows filled with seed + j, 8 passes of
+    M[j, k] -= (j / n) (k / n), then each row summed as a warp sums it
+    (lane t adds entries t, t + 32, ... in turn, then an xor butterfly).
+    Returns the sums and every row index each block held."""
+    f = np.float32
+    B = seed.shape[0]
+    out = np.full((B, n), np.nan, f)
+    held = []
+    fn = f(n)
+    kk = np.arange(n, dtype=f) / fn
+    for blk in range(-(-n // rows)):
+        j0 = blk * rows
+        js = np.arange(j0, min(n, j0 + rows))
+        held.append(js)
+        M = (seed[:, None, None] + js.astype(f)[None, :, None]) \
+            * np.ones((1, 1, n), f)
+        vj = js.astype(f) / fn
+        for _ in range(probe.RANK1_UPDATES):
+            M = M - vj[None, :, None] * kk[None, None, :]
+        lanes = np.zeros((B, len(js), 32), f)
+        for k in range(n):
+            lanes[:, :, k % 32] += M[:, :, k]
+        o = 16
+        while o:
+            lanes = lanes + lanes[:, :, np.arange(32) ^ o]
+            o >>= 1
+        out[:, js] = lanes[:, :, 0]
+    return out, held
+
+
+@pytest.mark.parametrize("n,rows", [(16, 32), (40, 32), (40, 7), (352, 32),
+                                    (33, 1)])
+def test_on_chip_scratch_probe_order_matches_plain(n, rows):
+    """The on-chip plan's blocks cover every row once, and its order (the
+    plain subtractions, a warp's sums) is within the probe's 1e-5 relative
+    error of the plain version."""
+    seed, _, _ = probe.probe_inputs(n, 4, B=3, seed=n, device="cpu")
+    got, held = _scratch_probe_blocks(seed.numpy(), n, rows)
+    assert sorted(np.concatenate(held).tolist()) == list(range(n))
+    want = probe.scratch_probe_plain(seed, n).double().numpy()
+    rel = np.abs(got - want).max() / max(1.0, np.abs(want).max())
+    assert rel < 1e-5
+
+
+def test_scratch_probe_rows_mirror_the_kernel():
+    """scratch_rows is csrc/probe_stream.cu's: SCRATCH_ROWS rows a block
+    and the row of k / n while they fit SMEM_LIMIT, fewer past it, none
+    past one row (refused); the probe's sizes keep the full 32."""
+    src = (ROOT / "qpalm_tpu_torch" / "csrc" / "probe_stream.cu").read_text()
+    assert f"SCRATCH_ROWS = {probe.SCRATCH_ROWS};" in src
+    assert f"SMEM_LIMIT = {probe.SMEM_LIMIT};" in src
+    for n in probe.SIZES:
+        assert probe.scratch_rows(n) == probe.SCRATCH_ROWS
+    assert "const int smem = (rows + 1) * n * (int)sizeof(float);" in src
+    for n in (1, 100, 1761, 1762, 5000, 29056, 29057):
+        r = probe.scratch_rows(n)
+        assert 4 * n * (r + 1) <= probe.SMEM_LIMIT or r < 1
+        assert r == probe.SCRATCH_ROWS or 4 * n * (r + 2) > probe.SMEM_LIMIT
+    assert probe.scratch_rows(29056) == 1 and probe.scratch_rows(29057) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 40, 352])
+def test_cuda_scratch_probe_keeps_its_scratch_on_chip(n):
+    """The kernel against its plain version on the card, within the
+    probe's 1e-5 relative error, allocating nothing but its (B, n) sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    seed, _, _ = probe.probe_inputs(n, 4, B=probe.BATCH, seed=n)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = probe.scratch_probe.launches
+    got = probe.scratch_probe(seed, n)
+    torch.cuda.synchronize()
+    assert probe.scratch_probe.launches == launches + 1
+    assert torch.cuda.max_memory_allocated() - before <= 4 * probe.BATCH * n \
+        + 512
+    want = probe.scratch_probe_plain(seed, n)
+    rel = ((got.double() - want.double()).abs().max()
+           / want.double().abs().max().clamp(min=1.0)).item()
+    assert rel < 1e-5

@@ -2,7 +2,8 @@
 the card.
 
     python tools/stream_ab.py [--tier stream|smem]
-                              [--kernel k1|chol|chol_solve|general] [DIR ...]
+                              [--kernel k1|chol|chol_solve|chol_wide|general]
+                              [DIR ...]
 
 Each DIR holds a `qpalm_tpu_torch` package (default: this checkout's).
 Each copy is built and timed in a process of its own, in the order given,
@@ -35,6 +36,10 @@ general loop solves randomQP n=480, and the identity at f32 (64, 480,
 `--kernel chol`: K2a (`linalg.chol.cholesky_upper`) on phase 3's batch,
 and the cluster factor at (64, 480, 480) in f32 and f64 on an SPD batch
 from `default_rng(1)`, timed the same way.
+`--kernel chol_wide`: K2b's wide plan (`chol_solve_wide_kernel`), one
+vector, at f64 n = 14536 and f32 n = 16392 (chip_smoke.py phase 15's
+sizes: R a random upper triangle with a dominant diagonal from a seeded
+CUDA generator), each the mean of 5 launches, queued as above.
 `--kernel general`: the general loop end to end, `batch.solve_batch` of the
 sweep's randomQP n=480 row (B=64) at the default `Settings()` (f64), as
 chip_smoke.py phase 14 runs it: the host wall of two solves after one
@@ -76,8 +81,8 @@ def timed(sd, scal, st, T, s):
                 max_iterations=int(out.sc[:, F._ITER].max()),
                 state_sha256=sha.hexdigest()[:16], split_ms=split)
 
-def queued(fn):
-    # fn()'s output and its mean milliseconds over 100 launches
+def queued(fn, reps=100):
+    # fn()'s output and its mean milliseconds over reps launches
     out = fn()
     warm_until = time.perf_counter() + 0.3  # the card raises its clock
     while time.perf_counter() < warm_until:
@@ -88,12 +93,12 @@ def queued(fn):
     # run back to back and the wrapper's host time is not counted
     torch.cuda._sleep(40_000_000)
     start.record()
-    for _ in range(100):
+    for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     sha = hashlib.sha256(out.cpu().numpy().tobytes())
-    return dict(ms=start.elapsed_time(end) / 100,
+    return dict(ms=start.elapsed_time(end) / reps,
                 out_sha256=sha.hexdigest()[:16])
 
 def wide_spd(dt):
@@ -142,6 +147,17 @@ if sys.argv[2] in ("chol", "chol_solve"):
                                                            480).contiguous()
                 runs["float32 (64, 480, 480) identity"] = queued(
                     lambda: chol.cholesky_solve(Rw, eye))
+elif sys.argv[2] == "chol_wide":
+    from qpalm_tpu_torch.linalg import chol
+    for n, dt in ((14536, torch.float64), (16392, torch.float32)):
+        g = torch.Generator(device="cuda").manual_seed(150)
+        Rw = torch.triu(torch.rand((1, n, n), generator=g, device="cuda",
+                                   dtype=dt) - 0.5)
+        Rw.diagonal(dim1=1, dim2=2).fill_(n)
+        bw = torch.randn((1, n), generator=g, device="cuda", dtype=dt)
+        runs[f"{dt} (1, {n})"] = queued(lambda: chol.cholesky_solve(Rw, bw),
+                                        5)
+        del Rw
 elif sys.argv[2] == "general":
     from qpalm_tpu_torch import sweep
     from qpalm_tpu_torch.batch import solve_batch
@@ -194,7 +210,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tier", choices=("stream", "smem"), default="stream")
     ap.add_argument("--kernel", choices=("k1", "chol", "chol_solve",
-                                         "general"), default="k1")
+                                         "chol_wide", "general"),
+                    default="k1")
     ap.add_argument("dirs", nargs="*")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
