@@ -90,17 +90,22 @@ Phases, each asserting, any failure exiting non-zero:
      finished ones unchanged); and the sweep's randomQP n=320 and 352 rows
      (B=64) through the general loop and through streaming K1, timed.  The
      K2 counters are zeroed before each solve and read after;
- 15. K2's wide plans, at sizes the other plans do not take: the cluster
-     factor with its panels in a global scratch at f64 (1, 3640, 3640), f64
-     (2, 3640, 3640) and f32 (1, 7272, 7272), the global solve with its
-     column in x's at f64 n = 14536 and f32 n = 16392 (k = 1 and 2, R a
-     random upper triangle with a dominant diagonal), each bit for bit
-     against its twin run on the card, timed beside torch.linalg.cholesky
-     and torch.cholesky_solve and its bound, the factor split by its cycle
-     counters; then solve_batch at the default Settings() (f64, no cap on
+ 15. K2's wide plans, at sizes the other plans do not take: the grid
+     factor (the card's CTAs shared out over the matrices, a grid barrier
+     a step) at f64 (1, 3640, 3640), f64 (2, 3640, 3640) and f32 (1, 7272,
+     7272), the stripe solve (a CTA a stripe of a column) at f64 n = 14536
+     and f32 n = 16392 (k = 1 and 2, R a random upper triangle with a
+     dominant diagonal), each bit for bit against its twin run on the
+     card, timed beside torch.linalg.cholesky and torch.cholesky_solve and
+     its bound, the factor split by its cycle counters; the one-vector
+     solve at f64 (1, 3640), the shape of the solve_batch below, in the
+     stripe solve that solve_plan picks there and in the global solve
+     that took it before, both bit for bit against the twin; then
+     solve_batch at the default Settings() (f64, no cap on
      max_iter) on one randomQP n=3640 problem (m = n): solved, the f64
-     referee holding its KKT residuals within the settings' eps, the wide
-     factor launched (the counters zeroed before and read after).
+     referee holding its KKT residuals within the settings' eps, both wide
+     kernels launched (the counters zeroed before and read after), its
+     wall and K2's share of it (launches by kernel times their time).
 
 It prints a JSON line of the kernels' numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}} only when every phase passed.
@@ -189,7 +194,8 @@ WIDE_N, WIDE_B = 480, 64  # phase 14's randomQP row past K1
 STREAM_ROWS = (320, 352)  # phase 14's STREAM_N_MAX rows, at WIDE_B
 # phase 15: the wide plans just past the others' last n (f64 3632 and f32
 # 7264 for the factor, f64 14528 and f32 16384 for the solve), as (B, n,
-# dtype), the first of each dtype the kernels line's row; and the
+# dtype), the first of each dtype the kernels line's row (the f64 solve's
+# row at (1, WIDE_QP_N), the shape whose launches it counts); and the
 # randomQP n of its solve_batch run
 WIDE_FACTORS = ((1, 3640, "float64"), (2, 3640, "float64"),
                 (1, 7272, "float32"))
@@ -245,18 +251,17 @@ KERNEL_NAMES = (("fused_palm_kernelILb1E", "K1 streaming (fused_palm_kernel"
                  "<true>)"), ("fused_palm_kernelILb0ELb0E", "K1 on chip"),
                 ("fused_palm_kernelILb0ELb1E", "K1 on chip, profiled"),
                 ("11chol_kernel", "K2a"),
-                ("19chol_cluster_kernelIfLb0ELb0E", "K2a cluster f32"),
-                ("19chol_cluster_kernelIfLb1ELb0E",
-                 "K2a cluster f32, profiled"),
-                ("19chol_cluster_kernelIdLb0ELb0E", "K2a cluster f64"),
-                ("19chol_cluster_kernelIdLb1ELb0E",
-                 "K2a cluster f64, profiled"),
-                ("19chol_cluster_kernelIfLb0ELb1E", "K2a wide f32"),
-                ("19chol_cluster_kernelIfLb1ELb1E", "K2a wide f32, profiled"),
-                ("19chol_cluster_kernelIdLb0ELb1E", "K2a wide f64"),
-                ("19chol_cluster_kernelIdLb1ELb1E", "K2a wide f64, profiled"),
-                ("22chol_solve_wide_kernelIfE", "K2b wide f32"),
-                ("22chol_solve_wide_kernelIdE", "K2b wide f64"),
+                ("19chol_cluster_kernelIfLb0E", "K2a cluster f32"),
+                ("19chol_cluster_kernelIfLb1E", "K2a cluster f32, profiled"),
+                ("19chol_cluster_kernelIdLb0E", "K2a cluster f64"),
+                ("19chol_cluster_kernelIdLb1E", "K2a cluster f64, profiled"),
+                *((f"16chol_grid_kernelI{t}Li{b}ELb{pr}E",
+                   f"K2a grid f{32 if t == 'f' else 64}, panels of {b}"
+                   + (", profiled" if pr else ""))
+                  for t in "fd" for b in (32, 64) for pr in (0, 1)),
+                *((f"24chol_solve_stripe_kernelI{t}Li{w}E",
+                   f"K2b stripe f{32 if t == 'f' else 64}, stripes of {w}")
+                  for t in "fd" for w in (32, 64, 128)),
                 ("23chol_solve_panel_kernel", "K2b blocked"),
                 ("17chol_solve_kernel", "K2b entry by entry"),
                 ("22chol_solve_warp_kernelIdLi2E",
@@ -1115,7 +1120,9 @@ def phase_wide(dev):
     from qpalm_tpu_torch.types import QPData, Settings
     from qpalm_tpu_torch.workloads import random_qp
 
-    numbers = {}
+    from qpalm_tpu_torch._build import check_launch, kernels
+
+    numbers, per_launch = {}, {}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for nb, n, dt in WIDE_FACTORS:
         dtype = getattr(torch, dt)
@@ -1125,14 +1132,15 @@ def phase_wide(dev):
         M = G @ G.transpose(1, 2) + n * torch.eye(n, device=dev, dtype=dtype)
         del G
         gp = chol.global_plan(nb, n, dtype, sms)
-        require(chol.factor_plan(n, dtype) == "wide" and gp.panel == "global",
+        require(chol.factor_plan(n, dtype) == "wide"
+                and isinstance(gp, chol.GridPlan),
                 f"K2 wide factor {label}: plan {gp}")
         R = chol.cholesky_upper(M)
         Rp, plain_ms = timed(lambda: chol.cholesky_upper_plain(M))
         require(torch.equal(R, Rp), f"K2 wide factor {label} vs plain: "
                 f"{int((R != Rp).sum())} entries differ")
         del Rp
-        prof = torch.zeros((nb * gp.cluster, 8), dtype=torch.int64,
+        prof = torch.zeros((chol.prof_ctas(nb, gp), 8), dtype=torch.int64,
                            device=dev)
         R2 = torch.empty_like(M)
         require(chol._launch_global(M, R2, gp, prof) == 0,
@@ -1149,18 +1157,61 @@ def phase_wide(dev):
                    library_ms=cuda_ms(lambda: torch.linalg.cholesky(
                        M, upper=True), 3),
                    **bound(nb * n ** 3 / 3, 2 * es * nb * n * n, peak))
-        cyc = prof.double().mean(0).tolist()[:len(chol.CLUSTER_SECTIONS)]
+        cyc = prof.double().mean(0).tolist()[:len(chol.GRID_SECTIONS)]
         split = {sec: round(row["ms"] * c / sum(cyc), 3)
-                 for sec, c in zip(chol.CLUSTER_SECTIONS, cyc)}
-        say(f"[wide K2 factor {label}] bit-identical to the twin; "
-            f"{gp.cluster} CTAs a matrix, panels of {gp.b} rows in a "
-            f"{chol.panel_scratch_bytes(nb, n, dtype, gp)}-byte scratch; "
-            f"{row['ms']:.3f} ms (bound {row['bound_ms']:.3f} "
-            f"{row['bound_by']}, plain {plain_ms:.1f}, torch.linalg.cholesky"
-            f" {row['library_ms']:.3f}); by its counters {split} ms")
+                 for sec, c in zip(chol.GRID_SECTIONS, cyc)}
+        say(f"[wide K2 factor {label}] bit-identical to the twin; the grid "
+            f"factor, {chol.prof_ctas(nb, gp)} CTAs "
+            f"({chol.prof_ctas(nb, gp) // min(nb, gp.ctas)} a matrix), "
+            f"panels of {gp.b} rows; {row['ms']:.3f} ms (bound "
+            f"{row['bound_ms']:.3f} {row['bound_by']}, plain {plain_ms:.1f}, "
+            f"torch.linalg.cholesky {row['library_ms']:.3f}); by its "
+            f"counters {split} ms")
         name = chol.KERNELS["factor", "wide", dtype]
         numbers.setdefault(name, row)
+        if (nb, n) == (1, WIDE_QP_N):
+            per_launch[name] = row["ms"]
         del M, R
+
+    def solve_row(R, b, b3, fn, label):
+        """fn(R, b) held bit for bit to the twin run on the card, and timed
+        beside torch.cholesky_solve and the bound."""
+        n, k = R.shape[-1], b3.shape[2]
+        x = fn(R, b)
+        xp, plain_ms = timed(lambda: chol.cholesky_solve_plain(R, b))
+        require(torch.equal(x, xp), f"K2 {label} vs plain: "
+                f"{int((x != xp).sum())} entries differ")
+        x3 = x.reshape(b3.shape).double()
+        Rd = R.double()
+        res = ((Rd.transpose(1, 2) @ (Rd @ x3) - b3.double()).abs().max()
+               / b3.double().abs().max()).item()
+        del Rd
+        require(res < (1e-12 if R.dtype == torch.float64 else 1e-3),
+                f"K2 {label}: residual {res:.3e}")
+        es = R.element_size()
+        peak = F64_PEAK if R.dtype == torch.float64 else F32_PEAK
+        row = dict(max_abs_err=0.0, ms=cuda_ms(lambda: fn(R, b), 3),
+                   plain_ms=plain_ms,
+                   library_ms=cuda_ms(lambda: torch.cholesky_solve(
+                       b3, R, upper=True), 3),
+                   **bound(2 * n * n * k, es * (n * n + 2 * n * k), peak))
+        say(f"[wide K2 {label}] bit-identical to the twin, residual "
+            f"{res:.1e}; {row['ms']:.3f} ms (bound {row['bound_ms']:.3f} "
+            f"{row['bound_by']}, plain {plain_ms:.1f}, torch.cholesky_solve "
+            f"{row['library_ms']:.3f})")
+        return row
+
+    def global_solve(R, b):
+        """The global solve (chol_solve_global_kernel), the plan that took
+        the one-vector solves of this size before the stripe solve."""
+        B, n, _ = R.shape
+        x = torch.empty_like(b)
+        check_launch("qp_chol_solve_global", kernels().qp_chol_solve_global(
+            R.data_ptr(), b.data_ptr(), x.data_ptr(), B, n, 1,
+            *chol.global_solve_shape(n, R.dtype),
+            int(R.dtype == torch.float64),
+            torch.cuda.current_stream().cuda_stream))
+        return x
 
     for n, dt in WIDE_SOLVES:
         dtype = getattr(torch, dt)
@@ -1169,41 +1220,45 @@ def phase_wide(dev):
                                   dtype=dtype) - 0.5)
         R.diagonal(dim1=1, dim2=2).fill_(n)
         for k in (1, 2):
-            label = f"{dt} n={n} k={k}"
             b = torch.randn((1, n) if k == 1 else (1, n, k), generator=g,
                             device=dev, dtype=dtype)
             b3 = b[..., None] if k == 1 else b
             require(chol.solve_plan(1, n, k, dtype) == ("wide", 1),
-                    f"K2 wide solve {label}: plan "
+                    f"K2 wide solve {dt} n={n} k={k}: plan "
                     f"{chol.solve_plan(1, n, k, dtype)}")
-            x = chol.cholesky_solve(R, b)
-            xp, plain_ms = timed(lambda: chol.cholesky_solve_plain(R, b))
-            require(torch.equal(x, xp), f"K2 wide solve {label} vs plain: "
-                    f"{int((x != xp).sum())} entries differ")
-            x3 = x.reshape(b3.shape).double()
-            Rd = R.double()
-            res = ((Rd.transpose(1, 2) @ (Rd @ x3) - b3.double()).abs().max()
-                   / b3.double().abs().max()).item()
-            del Rd
-            require(res < (1e-12 if dtype == torch.float64 else 1e-3),
-                    f"K2 wide solve {label}: residual {res:.3e}")
-            es = R.element_size()
-            peak = F64_PEAK if dtype == torch.float64 else F32_PEAK
-            row = dict(max_abs_err=0.0,
-                       ms=cuda_ms(lambda: chol.cholesky_solve(R, b), 3),
-                       plain_ms=plain_ms,
-                       library_ms=cuda_ms(lambda: torch.cholesky_solve(
-                           b3, R, upper=True), 3),
-                       **bound(2 * n * n * k, es * (n * n + 2 * n * k),
-                               peak))
-            say(f"[wide K2 solve {label}] bit-identical to the twin, "
-                f"residual {res:.1e}; {row['ms']:.3f} ms (bound "
-                f"{row['bound_ms']:.3f} {row['bound_by']}, plain "
-                f"{plain_ms:.1f}, torch.cholesky_solve "
-                f"{row['library_ms']:.3f})")
+            row = solve_row(R, b, b3, chol.cholesky_solve,
+                            f"solve {dt} n={n} k={k}, stripes of "
+                            f"{chol.STRIPE_W[dtype]}")
             if k == 1:
                 numbers[chol.solve_kernel("wide", k, dtype)] = row
         del R
+
+    # the solve_batch's one-vector solve: the stripe solve, and the global
+    # solve that took it before (its row in the kernels line: the stripe
+    # solve's at this shape, whose launches that run counts)
+    n = WIDE_QP_N
+    g = torch.Generator(device=dev).manual_seed(151)
+    G = torch.randn((1, n, n), generator=g, device=dev, dtype=torch.float64)
+    M = G @ G.transpose(1, 2) + n * torch.eye(n, device=dev,
+                                              dtype=torch.float64)
+    del G
+    R = chol.cholesky_upper(M)
+    b = torch.randn((1, n), generator=g, device=dev, dtype=torch.float64)
+    require(chol.solve_plan(1, n, 1, torch.float64) == ("wide", 1),
+            f"K2 solve float64 (1, {n}): plan "
+            f"{chol.solve_plan(1, n, 1, torch.float64)}")
+    name = chol.solve_kernel("wide", 1, torch.float64)
+    row = solve_row(R, b, b[..., None], chol.cholesky_solve,
+                    f"solve float64 (1, {n}), the stripe solve")
+    old = solve_row(R, b, b[..., None], global_solve,
+                    f"solve float64 (1, {n}), the global solve")
+    numbers[name] = row
+    per_launch[name] = row["ms"]
+    say(f"[wide K2 solve float64 (1, {n})] the stripe solve "
+        f"{row['ms']:.4f} ms against the global solve's {old['ms']:.4f} "
+        f"(bound {row['bound_ms']:.4f}, torch.cholesky_solve "
+        f"{row['library_ms']:.4f})")
+    del M, R
 
     s = Settings()
     probs = [random_qp(WIDE_QP_N)]
@@ -1220,8 +1275,15 @@ def phase_wide(dev):
             f"randomQP n={WIDE_QP_N}: status {int(res.status[0])}")
     require(viol[0] <= 1.0, f"randomQP n={WIDE_QP_N}: referee violation "
             f"{viol[0]:.3e}")
-    require(lw.get("chol_global_wide_f64", 0) > 0,
-            f"randomQP n={WIDE_QP_N}: K2 launches {lw}")
+    for name in per_launch:
+        require(lw.get(name, 0) > 0, f"randomQP n={WIDE_QP_N}: K2 launches "
+                f"{lw}")
+    k2_s = sum(lw[name] * ms for name, ms in per_launch.items()) / 1e3
+    say(f"[wide general randomQP n={WIDE_QP_N} Settings()] K2's share of "
+        f"the {wall:.2f} s wall: "
+        + " + ".join(f"{lw[name]} x {ms:.4f} ms ({name})"
+                     for name, ms in per_launch.items())
+        + f" = {k2_s:.2f} s")
     launches = {name: lw.get(name, 0) for name in numbers}
     return numbers, launches
 
@@ -1287,7 +1349,13 @@ def main():
                     label += (f" {'f32' if hit[1] == 'f' else 'f64'}, E = "
                               f"{hit[2]}")
                     require(st == 0 and ld == 0, f"{label} spills")
-                if "wide" in label and "profiled" not in label:
+                # the grid factor and the stripe solve in the shapes the
+                # plans launch
+                if label in (f"K2a grid f{d}, panels of {b}" for d in (32, 64)
+                             for b in (chol.GRID_B, chol.GRID_B_WIDE)) \
+                        or label in (
+                        f"K2b stripe f{32 if dt == torch.float32 else 64}, "
+                        f"stripes of {w}" for dt, w in chol.STRIPE_W.items()):
                     require(st == 0 and ld == 0, f"{label} spills")
                 say(f"[build] {label}: {regs} registers, {st} bytes spill "
                     f"stores, {ld} bytes spill loads")

@@ -42,9 +42,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "qp_chol": [_P, _P, _I, _I, _I, _P],
     "qp_chol_solve": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "qp_chol_global": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "qp_chol_global": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "qp_chol_grid": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "qp_chol_solve_global": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "qp_chol_solve_wide": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "qp_chol_solve_stripe": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
     "qp_fused_palm": [_P] * 8 + [_P] * 6 + [_I] * 11 + [_P],
     "qp_fused_smem_bytes": [_I, _I],
     "qp_fused_stream_smem_bytes": [_I, _I],

@@ -52,12 +52,14 @@
 // for step s + D at step s, into a ring of registers, so that no load of R
 // lies on the chain of 2n dependent steps, and R's diagonal sits in shared
 // memory beside the column.  Past those (the "wide" plans) no n is
-// refused: where a panel of 8 rows no longer fits a CTA (f32 n > 7264, f64
-// n > 3632) each CTA's panel lives in a global scratch, and past the
-// solve's shared vectors or its ring's entries (f64 n > 14528, n > 16384)
-// the column lives in x's (chol_solve_wide_kernel).  linalg/chol.py picks
-// the plan (and the global solve's threads and entries a thread,
-// global_solve_shape).
+// refused, and the whole card works on each matrix: where a panel of 8
+// rows no longer fits a CTA (f32 n > 7264, f64 n > 3632) the grid factor
+// (chol_grid_kernel: one CTA an SM, a grid barrier a step), and past the
+// global solve's shared vectors or its ring's entries (f64 n > 14528, n >
+// 16384), or where few columns make it the faster, the stripe solve
+// (chol_solve_stripe_kernel: a CTA a stripe of each column, the stripes
+// handing their values on by flags).  linalg/chol.py picks the plan (and
+// the global solve's threads and entries a thread, global_solve_shape).
 //
 // Entry points (plain C, for ctypes) launch on the given stream, allocate
 // nothing, do not synchronise, and return cudaGetLastError().
@@ -415,12 +417,7 @@ chol_solve_panel_kernel(const float* __restrict__ gR,
 //    into its own shared memory and factors it there, row by row,
 //    left-looking, one block barrier a row: the CTAs compute the same
 //    numbers, so no finished panel has to be published and waited for,
-//    and each CTA needs all of it for its trailing tiles.  Where not even
-//    a panel of CTILE rows fits a CTA (f32 n > 7264, f64 n > 3632) the
-//    panel lives in the CTA's own slice of a global scratch instead (GPAN,
-//    the "wide" plan), read through L1 and L2, in the same loops and the
-//    same order: __syncthreads() orders a CTA's global writes and reads as
-//    it does its shared ones;
+//    and each CTA needs all of it for its trailing tiles;
 //  - each CTA updates its own tiles of the trailing upper triangle, CTILE x
 //    CTILE in registers, each loaded once and stored once into R,
 //    subtracting the panel's bb products in row order;
@@ -436,8 +433,9 @@ chol_solve_panel_kernel(const float* __restrict__ gR,
 // variant that kept the trailing triangle in the cluster's shared memory
 // (4-8 CTAs a matrix at n = 480) ran in several waves at the general
 // loop's B = 64 and lost to one wave of 2-CTA clusters with the triangle
-// in R, which L2 holds (PERF.md).  linalg/chol.py:global_plan picks C, b and
-// where the panel lives (and mirrors cluster_smem_bytes).  Every entry gets
+// in R, which L2 holds (PERF.md).  linalg/chol.py:global_plan picks C and
+// b (and mirrors cluster_smem_bytes); where not even a panel of CTILE rows
+// fits a CTA (f32 n > 7264, f64 n > 3632) it picks the grid factor below.  Every entry gets
 // the twin's arithmetic in the twin's order: entry (k, l) less R_ik R_il for
 // i = 0, 1, ..., k - 1 (the earlier panels' in the trailing updates, this
 // panel's in its row), each product and each difference rounded, then times
@@ -449,8 +447,7 @@ constexpr int CLUSTER_THREADS = 256;
 constexpr int CLUSTER_MAX = 8;  // the portable cluster size
 
 // the panel of a CTA of the cluster factor, b rows of CTILE * ceil(n /
-// CTILE) elements of es bytes: its dynamic shared memory, or its slice of
-// the global scratch
+// CTILE) elements of es bytes: its dynamic shared memory
 __host__ __device__ inline size_t cluster_smem_bytes(int n, int es, int b) {
   return (size_t)b * ((n + CTILE - 1) / CTILE) * CTILE * es;
 }
@@ -486,29 +483,34 @@ __device__ __forceinline__ void st8(T* p, const T (&v)[CTILE]) {
   }
 }
 
+// CTILE elements from p on (16-byte aligned) as 16-byte loads through L2
+// only (other CTAs wrote them)
+template <typename T>
+__device__ __forceinline__ void ldcg8(T (&v)[CTILE], const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const double2 d = __ldcg(reinterpret_cast<const double2*>(p) + i);
+      v[2 * i] = d.x;
+      v[2 * i + 1] = d.y;
+    }
+  }
+}
+
 // CTILE elements of a row of a matrix in global memory, from column col
 // on; `vec` where the row's first element is 16-byte aligned and all CTILE
-// lie in the row (16-byte loads, L2 only: other CTAs of the cluster wrote
-// them), else element by element, those past column n - 1 read as 0 and
-// not written
+// lie in the row (ldcg8), else element by element, those past column n - 1
+// read as 0 and not written
 template <typename T>
 __device__ __forceinline__ void gload8(T (&v)[CTILE], const T* row, int col,
                                        int n, bool vec) {
   if (vec && col + CTILE <= n) {
-    if constexpr (sizeof(T) == 4) {
-      const float4 a = __ldcg(reinterpret_cast<const float4*>(row + col));
-      const float4 b = __ldcg(reinterpret_cast<const float4*>(row + col) + 1);
-      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const double2 d =
-            __ldcg(reinterpret_cast<const double2*>(row + col) + i);
-        v[2 * i] = d.x;
-        v[2 * i + 1] = d.y;
-      }
-    }
+    ldcg8(v, row + col);
     return;
   }
 #pragma unroll
@@ -532,19 +534,16 @@ __device__ __forceinline__ void gstore8(T* row, int col, int n, bool vec,
 // factor with a zero lower triangle.  PROF (a separate instantiation, as
 // K1's profiled one): thread 0 of each CTA adds up its cycles by section
 // (CLUSTER_SECTIONS in linalg/chol.py) into prof[8 blockIdx.x + s].
-template <typename T, bool PROF, bool GPAN>
+template <typename T, bool PROF>
 __global__ void __launch_bounds__(CLUSTER_THREADS)
 chol_cluster_kernel(const T* __restrict__ gM, T* __restrict__ gR, int n,
-                    int b, T* __restrict__ gpan, long long* prof) {
+                    int b, long long* prof) {
   extern __shared__ __align__(16) float smf[];
   cg::cluster_group cl = cg::this_cluster();
   const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int nb = (n + CTILE - 1) / CTILE, pw = CTILE * nb;
-  // the panel, pan[r * pw + column]: in the CTA's shared memory, or (GPAN)
-  // in its own slice of the global scratch gpan
-  T* pan = GPAN ? gpan + (size_t)blockIdx.x * b * pw
-                : reinterpret_cast<T*>(smf);
+  T* pan = reinterpret_cast<T*>(smf);  // the panel, pan[r * pw + column]
   const bool vec = n % (16 / (int)sizeof(T)) == 0;  // rows 16-byte aligned
   const size_t off = (size_t)(blockIdx.x / C) * n * n;
   const T* M = gM + off;
@@ -656,6 +655,289 @@ chol_cluster_kernel(const T* __restrict__ gM, T* __restrict__ gR, int n,
     }
     __syncthreads();  // before the next gather overwrites pan
     stamp(4);
+  }
+  if constexpr (PROF)
+    if (tid == 0)
+      for (int section = 0; section < 5; ++section)
+        prof[8 * blockIdx.x + section] = cycles[section];
+}
+
+// The grid factor ("wide" in linalg/chol.py:factor_plan: f32 n > 7264,
+// f64 n > 3632, where not even a panel of CTILE rows fits a CTA of the
+// cluster factor; and below that, few matrices from the n where it
+// measured faster, linalg/chol.py:global_plan).  It replaces
+// `_chol_kernel_loop` of qpalm_tpu/linalg/pallas_chol.py there, as the
+// cluster factor does elsewhere.  What bounds a factor at B = 1 on this
+// card is how many SMs work on the one matrix: the cluster factor's 8 CTAs
+// left 124 of 132 SMs idle (74.680 ms at f64 n = 3640 against an
+// operations bound of 0.47 ms on the whole card, PERF.md).  So this
+// kernel is persistent, one CTA an SM, launched cooperatively so that
+// every CTA is resident and a grid barrier can order them; the CTAs are
+// shared out over the matrices, `per` a matrix.  Right-looking in panels
+// of BR rows, for panel rows p..p+BR-1:
+//  1. every CTA loads the panel's BR x BR diagonal triangle and one warp
+//     factors it (factor_triangle), a warp barrier a row: every CTA
+//     computes the same numbers, so none is published;
+//  2. each CTA computes the panel rows at its own contiguous slice of the
+//     columns right of the triangle, a thread a column, the column's BR
+//     entries in registers, and writes them to R: entry (p + k, l) needs
+//     only the triangle and column l, so the CTAs do not wait on each other;
+//  3. a grid barrier;
+//  4. CTA 0 of the matrix writes the triangle (zeros below its diagonal),
+//     the CTAs write the zeros left of it, and the trailing upper triangle
+//     is dealt to them in blocks of GRID_TB x GRID_TB tiles of CTILE x
+//     CTILE (round robin, column by column): a CTA brings the panel rows at
+//     the block's tile rows and tile columns into shared memory once, and
+//     each thread takes one tile in registers less the panel's BR products
+//     in row order, so that a tile reads the panel from shared memory and
+//     not, 2 BR CTILE elements a tile, from L2;
+//  5. a grid barrier (none after the last panel).
+// Everything another CTA wrote is read through L2 (__ldcg), never L1.
+// Every entry gets the twin's arithmetic in the twin's order, as in the
+// cluster factor: entry (k, l) less R_ik R_il for i = 0, 1, ..., k - 1
+// (the earlier panels' in the trailing updates, this panel's in the
+// triangle or the slice), each product and each difference rounded, then
+// times 1 / sqrt of the pivot (not rsqrt), the diagonal pivot * inv: bit
+// for bit linalg/chol.py:cholesky_upper_plain.  PROF: thread 0 of each CTA
+// adds up its cycles by section (GRID_SECTIONS in linalg/chol.py) into
+// prof[8 blockIdx.x + s].  Measured on an NVIDIA H100 80GB HBM3 at 700.00
+// W (tools/stream_ab.py --kernel chol_wide, A B B A against the cluster
+// factor it replaces): f64 (1, 3640) 6.015 ms (75.38; torch.linalg.cholesky
+// 5.2), f32 (1, 7272) 14.66 ms (321.30; 11.4), panels of 64 rows; by its
+// counters the triangle's chain and the barriers' wait for the slowest
+// CTA's blocks are most of what is left (PERF.md).
+constexpr int GRID_TB = 16;  // tiles a side of a block: a thread a tile
+constexpr int GRID_THREADS = GRID_TB * GRID_TB;
+
+// the strips' CTILE-element groups, padded by 16 bytes, so that the 16-byte
+// loads of 8 lanes with 8 consecutive groups fall in distinct banks
+template <typename T>
+__host__ __device__ constexpr int grid_group_stride() {
+  return CTILE + 16 / (int)sizeof(T);
+}
+
+template <typename T, int BR>
+__host__ __device__ constexpr int grid_smem_bytes() {
+  return 2 * BR * GRID_TB * grid_group_stride<T>() * (int)sizeof(T);
+}
+
+// A CTILE x CTILE tile at (r0, c0) of an n x n row-major matrix into acc
+// (LOAD, through L2) or out of it: `whole` where every row of it is
+// 16-byte aligned and its columns lie inside the matrix (its rows do, as
+// r0 <= c0), else entry by entry, those outside read as 0, not written
+template <bool LOAD, typename T>
+__device__ __forceinline__ void grid_tile_io(T (&acc)[CTILE][CTILE],
+                                             const T* A, int n, int r0,
+                                             int c0, bool whole) {
+  T* W = const_cast<T*>(A);
+  if (whole) {
+#pragma unroll
+    for (int x = 0; x < CTILE; ++x) {
+      if constexpr (LOAD)
+        ldcg8(acc[x], A + (size_t)(r0 + x) * n + c0);
+      else
+        st8(W + (size_t)(r0 + x) * n + c0, acc[x]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int x = 0; x < CTILE; ++x)
+#pragma unroll
+    for (int y = 0; y < CTILE; ++y) {
+      const bool in = r0 + x < n && c0 + y < n;
+      const size_t at = (size_t)(r0 + x) * n + c0 + y;
+      if constexpr (LOAD)
+        acc[x][y] = in ? __ldcg(A + at) : T(0);
+      else if (in)
+        W[at] = acc[x][y];
+    }
+}
+
+// The panel's diagonal triangle (bb <= BR rows of tri, its upper part
+// loaded) factored in place by one warp, left-looking, row by row: lane t
+// forms entries (k, c) for c = k + t, k + t + 32, ..., each less R_ik R_ic
+// for i = 0..k-1 in turn (the products off the chain: only the
+// differences wait on each other), then every lane takes 1 / sqrt of the
+// pivot (shuffled from lane 0) and scales its entries.  A warp barrier a
+// row; the inner loop only loads, so its loads run ahead.  invs[k] gets
+// row k's 1 / sqrt.
+template <typename T, int BR>
+__device__ __forceinline__ void factor_triangle(T (*tri)[BR + 1], T* invs,
+                                                int bb) {
+  constexpr int H = BR / 32;
+  const int lane = threadIdx.x;
+  for (int k = 0; k < bb; ++k) {
+    T acc[H];
+    bool on[H];  // the lane's entries (k, k + lane + 32 h) of the row
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      on[h] = k + lane + 32 * h < bb;
+      acc[h] = on[h] ? tri[k][k + lane + 32 * h] : T(0);
+    }
+    // unrolled, so that the loads of eight terms are in flight at once
+#pragma unroll 8
+    for (int i = 0; i < k; ++i) {
+      const T rik = tri[i][k];
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        if (on[h]) acc[h] = acc[h] - rik * tri[i][k + lane + 32 * h];
+    }
+    const T inv = T(1) / qp_sqrt(__shfl_sync(QP_FULL_MASK, acc[0], 0));
+#pragma unroll
+    for (int h = 0; h < H; ++h)  // at c = k the pivot times inv
+      if (on[h]) tri[k][k + lane + 32 * h] = acc[h] * inv;
+    if (lane == 0) invs[k] = inv;
+    __syncwarp();
+  }
+}
+
+// column-major position f of the upper triangle of tiles -> (row i, column
+// j), i <= j, f = j (j + 1) / 2 + i
+__device__ __forceinline__ void tri_tile(long long f, int& i, int& j) {
+  int jj = (int)((sqrt(8.0 * (double)f + 1.0) - 1.0) * 0.5);
+  while ((long long)jj * (jj + 1) / 2 > f) --jj;
+  while ((long long)(jj + 1) * (jj + 2) / 2 <= f) ++jj;
+  j = jj;
+  i = (int)(f - (long long)jj * (jj + 1) / 2);
+}
+
+template <typename T, int BR, bool PROF>
+__global__ void __launch_bounds__(GRID_THREADS, 1)
+chol_grid_kernel(const T* __restrict__ gM, T* __restrict__ gR, int B, int n,
+                 int per, long long* prof) {
+  static_assert(BR % CTILE == 0, "panels of whole tiles");
+  __shared__ T tri[BR][BR + 1];  // the panel's diagonal triangle
+  __shared__ T invs[BR];         // 1 / sqrt of each of its pivots
+  // the panel rows at a block's tile rows (pr) and tile columns (pc): BR
+  // rows of GRID_TB groups of CTILE elements, groups gs apart
+  constexpr int gs = grid_group_stride<T>(), gpw = GRID_TB * gs;
+  extern __shared__ __align__(16) float smf[];
+  T* pr = reinterpret_cast<T*>(smf);
+  T* pc = pr + BR * gpw;
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int groups = (int)gridDim.x / per, group = blockIdx.x / per,
+            rank = blockIdx.x % per;
+  const int nb = (n + CTILE - 1) / CTILE;
+  const bool vec = n % (16 / (int)sizeof(T)) == 0;  // rows 16-byte aligned
+  long long cycles[5] = {0, 0, 0, 0, 0}, tick = 0;
+  if constexpr (PROF) tick = clock64();
+  auto stamp = [&](int section) {
+    if constexpr (PROF) {
+      const long long now = clock64();
+      cycles[section] += now - tick;
+      tick = now;
+    }
+  };
+
+  // every group takes one matrix a round; all run the same barriers
+  for (int m0 = 0; m0 < B; m0 += groups) {
+    const int m = m0 + group;
+    const bool active = m < B;
+    const size_t off = (size_t)(active ? m : 0) * n * n;
+    const T* M = gM + off;
+    T* R = gR + off;
+    for (int p = 0; p < n; p += BR) {
+      const int bb = min(BR, n - p), t0 = p + bb;
+      const T* src = p == 0 ? M : R;  // where the trailing rows are
+      if (active) {
+        // 1. the diagonal triangle (its upper part only)
+        for (int e = tid; e < bb * bb; e += GRID_THREADS) {
+          const int r = e / bb, c = e - r * bb;
+          if (c >= r) tri[r][c] = __ldcg(src + (size_t)(p + r) * n + p + c);
+        }
+        __syncthreads();
+        if (tid < 32) factor_triangle<T, BR>(tri, invs, bb);
+        __syncthreads();
+        stamp(0);
+        // 2. the panel rows at this CTA's columns (none at the last panel,
+        // so that bb == BR here)
+        const int ncols = n - t0, chunk = (ncols + per - 1) / per;
+        const int lo = t0 + rank * chunk, hi = min(n, lo + chunk);
+        for (int l = lo + tid; l < hi; l += GRID_THREADS) {
+          T acc[BR];
+#pragma unroll
+          for (int k = 0; k < BR; ++k)
+            acc[k] = __ldcg(src + (size_t)(p + k) * n + l);
+#pragma unroll
+          for (int k = 0; k < BR; ++k) {
+            const T pk = acc[k] * invs[k];
+            acc[k] = pk;
+#pragma unroll
+            for (int j = k + 1; j < BR; ++j) acc[j] = acc[j] - tri[k][j] * pk;
+            // no row's loads of tri ahead of this row: hoisted, they spilled
+            asm volatile("" ::: "memory");
+          }
+#pragma unroll
+          for (int k = 0; k < BR; ++k) R[(size_t)(p + k) * n + l] = acc[k];
+        }
+        stamp(1);
+      }
+      grid.sync();
+      stamp(3);
+      if (active) {
+        // 4. the triangle and the zeros left of it, then the trailing tiles
+        if (rank == 0)
+          for (int e = tid; e < bb * bb; e += GRID_THREADS) {
+            const int r = e / bb, c = e - r * bb;
+            R[(size_t)(p + r) * n + p + c] = c >= r ? tri[r][c] : T(0);
+          }
+        for (int e = rank * GRID_THREADS + tid; e < bb * p;
+             e += per * GRID_THREADS) {
+          const int r = e / p, c = e - r * p;
+          R[(size_t)(p + r) * n + c] = T(0);
+        }
+        stamp(4);
+        if (t0 < n) {
+          const int q = t0 / CTILE, nc = nb - q;
+          const int nbk = (nc + GRID_TB - 1) / GRID_TB;
+          const int x = tid / GRID_TB, y = tid % GRID_TB;
+          const T* P = R + (size_t)p * n;  // the panel rows, final
+          for (int f = rank; f < nbk * (nbk + 1) / 2; f += per) {
+            int bi, bj;
+            tri_tile(f, bi, bj);
+            const int c0r = CTILE * (q + GRID_TB * bi),
+                      c0c = CTILE * (q + GRID_TB * bj);
+            __syncthreads();  // the last block's reads of the strips
+#pragma unroll 4
+            for (int e = tid; e < BR * GRID_TB * CTILE; e += GRID_THREADS) {
+              const int r = e / (GRID_TB * CTILE), ci = e % (GRID_TB * CTILE);
+              const int at = r * gpw + ci / CTILE * gs + ci % CTILE;
+              pr[at] = c0r + ci < n ? __ldcg(P + (size_t)r * n + c0r + ci)
+                                    : T(0);
+              pc[at] = c0c + ci < n ? __ldcg(P + (size_t)r * n + c0c + ci)
+                                    : T(0);
+            }
+            __syncthreads();
+            const int tr = q + GRID_TB * bi + x, tc = q + GRID_TB * bj + y;
+            if (tr > tc || tc >= nb) continue;
+            // a tile inside the matrix with 16-byte aligned rows, or not:
+            // one branch a tile, so that the two ways of loading and
+            // storing it never hold registers at once (they spilled)
+            const bool whole = vec && CTILE * tc + CTILE <= n;
+            T acc[CTILE][CTILE];
+            grid_tile_io<true>(acc, src, n, CTILE * tr, CTILE * tc, whole);
+#pragma unroll 1
+            for (int r = 0; r < BR; ++r) {
+              T a[CTILE], cv[CTILE];
+              ld8(a, pr + r * gpw + x * gs);
+              ld8(cv, pc + r * gpw + y * gs);
+#pragma unroll
+              for (int xx = 0; xx < CTILE; ++xx)
+#pragma unroll
+                for (int yy = 0; yy < CTILE; ++yy)
+                  acc[xx][yy] = acc[xx][yy] - a[xx] * cv[yy];
+            }
+            grid_tile_io<false>(acc, R, n, CTILE * tr, CTILE * tc, whole);
+          }
+        }
+        stamp(2);
+      }
+      if (t0 < n) {  // 5. (uniform over the grid: every matrix has this n)
+        grid.sync();
+        stamp(3);
+      }
+    }
   }
   if constexpr (PROF)
     if (tid == 0)
@@ -785,94 +1067,221 @@ chol_solve_global_kernel(const T* __restrict__ gR, const T* __restrict__ gb,
   }
 }
 
-// The global solve past its reach ("wide" in linalg/chol.py:solve_plan):
-// f64 n > 14528, whose two vectors outgrow shared memory, and n >
-// GS_THREADS_MAX * GS_E_MAX, past the ring's entries a thread (a ring of 64
-// f32 entries spilled).  The same 2n steps in the same order, one barrier
-// a step, thread t owning entries t, t + GW_THREADS, ..., each quotient
-// written into its entry a step later.  What moves: R's diagonal comes
-// through a ring of D registers loaded D steps ahead, so that it is off
-// the chain; the owners read R on their updates, GW_CHUNK entries' loads
-// issued together before their updates (no ring: the entries a thread are
-// a runtime count); the column lives in shared memory while its n entries
-// fit (VSM: f64 n <= 29056, f32 n <= 58112), else in x's own column (v[l
-// k]: w, then y, then x), read and written through L1 and L2 beside R
-// (with the column in x's at every n the kernel ran 15-17% longer at f64
-// n = 14536 and f32 n = 16392).  What bounds it is one SM's memory
-// traffic: a step reads n - j entries of a row of R forward, and
-// backward j entries of a column, each in a sector of its own;
-// prefetching the next step's entries and chunks of 16 entries ran
-// slower, chunks of 32 spilled (PERF.md).
-constexpr int GW_THREADS = 512, GW_CHUNK = 8;
+// The stripe solve ("wide" in linalg/chol.py:solve_plan: f64 n > 14528,
+// whose two vectors outgrow the global solve's shared memory, f32 n >
+// GS_THREADS_MAX * GS_E_MAX, past its ring's entries a thread, and the
+// solves of few columns where it beats the global solve).  It replaces
+// `_solve_kernel_loop` of qpalm_tpu/linalg/pallas_chol.py there.  What
+// bounds a solve of one column is its chain of 2n dependent divisions;
+// one SM a column (the global solve) also spends each step on that SM's
+// traffic of the step's row or column of R, about 4 us a step at f64 n =
+// 14536 (PERF.md).  So a column's n entries are cut into stripes of W, a
+// CTA of W threads a stripe, the stripes of every column of every matrix
+// at once, over the whole card.  Each pass is one launch: forward, then
+// backward (the launch boundary makes the forward pass final for the
+// backward one).  A CTA draws its stripe from an atomic ticket, one counter
+// a column a pass, in the order the pass needs (forward ascending,
+// backward descending), and so waits only on stripes that CTAs already
+// running took: no deadlock, whatever the card keeps resident.  Forward,
+// stripe s applies the tiles R[pW:(p+1)W, sW:(s+1)W] for p = 0..s-1 in
+// turn (w_l -= y_j R_jl, j ascending), each once stripe p's flag is set;
+// backward, the tiles R[sW:(s+1)W, pW:(p+1)W] for p from the last stripe
+// down (y_r -= R_rk x_k, k descending), a thread walking its row of the
+// tile.  Each tile comes into shared memory by cp.async, one tile ahead of
+// its use (the next stripe's tile does not wait on any flag), rows padded
+// to W + 1 elements, entries past n zero-filled (a zero term leaves an
+// entry as it is).  Then one warp solves the stripe's diagonal block as
+// chol_solve_warp_kernel does (every lane forms the next numerator
+// itself, so no shuffle lies on the chain of divisions), writes the
+// stripe's values into x's column, and sets its flag (stores, fence,
+// release); a waiter's thread 0 spins on an acquire load, and its CTA
+// reads the published values through L2 (__ldcg).  Every entry gets the
+// twin's terms in the twin's order, each product and each difference
+// rounded, and a true division: bit for bit
+// linalg/chol.py:cholesky_solve_plain.  The wrapper zeroes the tickets and
+// flags (sync: 2 passes x B k columns x (1 ticket + S flags) ints).
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (tools/stream_ab.py
+// --kernel chol_wide against the kernel it replaces, tools/chol_plans.py
+// --solve): f64 n = 14536 4.344 ms in stripes of 32 (120.65;
+// torch.cholesky_solve 4.12), f32 n = 16392 3.619 ms in stripes of 64
+// (139.32; 4.19), f64 (1, 3640) 1.082 ms against the global solve's
+// 7.276; what bounds it is the chain of divisions and a flag hand-off a
+// stripe (PERF.md).
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
 
-template <typename T, bool VSM>
-__global__ void __launch_bounds__(GW_THREADS)
-chol_solve_wide_kernel(const T* __restrict__ gR, const T* __restrict__ gb,
-                       T* __restrict__ gx, int n, int k) {
-  constexpr int D = GS_DEPTH_MAX;
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// one element by cp.async, zeros where !ok
+template <typename T>
+__device__ __forceinline__ void cp_elem(T* dst, const T* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   stream::smem_addr(dst)),
+               "l"(src), "n"((int)sizeof(T)), "r"(ok ? (int)sizeof(T) : 0)
+               : "memory");
+}
+
+// tiles of W x (W + 1) elements: two (one ahead) where they fit
+template <typename T, int W>
+__host__ __device__ constexpr int stripe_bufs() {
+  return (2 * W * (W + 1) + W) * (int)sizeof(T) <= 232448 ? 2 : 1;
+}
+
+template <typename T, int W>
+__host__ __device__ constexpr int stripe_smem_bytes() {
+  return (stripe_bufs<T, W>() * W * (W + 1) + W) * (int)sizeof(T);
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(W)
+chol_solve_stripe_kernel(const T* __restrict__ gR, const T* __restrict__ gb,
+                         T* __restrict__ gx, int n, int k, int bwd,
+                         int* __restrict__ sync) {
+  constexpr int LD = W + 1, NBUF = stripe_bufs<T, W>(), E = W / 32;
   extern __shared__ __align__(16) float smf[];
-  const int tid = threadIdx.x;
-  const T* R = gR + (size_t)blockIdx.x * n * n;
-  const size_t boff = (size_t)blockIdx.x * n * k;
-  T* const xc = gx + boff + blockIdx.y;  // x's column, entry l at l k
-  // the column: entry l at v[l * ks]
-  T* const v = VSM ? reinterpret_cast<T*>(smf) : xc;
-  const size_t ks = VSM ? 1 : k;
-  // R's diagonal entry that combined step s divides by (forward j = s,
-  // backward l = 2n - 1 - s), 0 past the last step
-  auto diag = [&](int s) {
-    const int l = s < n ? s : 2 * n - 1 - s;
-    return l >= 0 ? R[(size_t)l * n + l] : T(0);
-  };
-  T dr[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) dr[d] = diag(d);
-  for (int l = tid; l < n; l += GW_THREADS)
-    v[l * ks] = gb[boff + (size_t)l * k + blockIdx.y];
+  T* tiles = reinterpret_cast<T*>(smf);  // NBUF tiles, row r at r * LD
+  T* ys = tiles + NBUF * W * LD;  // a tile's published values, then v
+  __shared__ int s_ticket;
+  const int tid = threadIdx.x, S = (n + W - 1) / W;
+  const int c = blockIdx.y, m = blockIdx.z;
+  int* ticket =
+      sync + ((size_t)bwd * gridDim.z * k + (size_t)m * k + c) * (S + 1);
+  int* flag = ticket + 1;
+  if (tid == 0) s_ticket = atomicAdd(ticket, 1);
   __syncthreads();
-  T prev = T(0);  // the last step's quotient
-  for (int s0 = 0; s0 < 2 * n; s0 += D) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const int s = s0 + d;
-      if (s >= 2 * n) break;
-      const bool fwd = s < n;
-      const int j = fwd ? s : 2 * n - 1 - s;  // the entry the step divides
-      const T q = div_rn(s == n ? prev : v[j * ks], dr[d]);
-      // the step's late write: y_{s-1} forward, x_{j+1} backward (none at
-      // s = n: y_{n-1} is unused)
-      const int late = s == n ? -1 : fwd ? s - 1 : j + 1;
-      const int hi = fwd ? n : min(n, j + 2);
-      for (int l0 = tid; l0 < hi; l0 += GW_THREADS * GW_CHUNK) {
-        T rv[GW_CHUNK], vv[GW_CHUNK];
-#pragma unroll
-        for (int w = 0; w < GW_CHUNK; ++w) {
-          const int l = l0 + GW_THREADS * w;
-          const bool upd = fwd ? l > j && l < n : l < j;
-          rv[w] = upd ? R[fwd ? (size_t)j * n + l : (size_t)l * n + j]
-                      : T(0);
-          vv[w] = upd ? v[l * ks] : T(0);
+  const int s = bwd ? S - 1 - s_ticket : s_ticket;
+  const int r0 = s * W, ns = min(W, n - r0);
+  const T* R = gR + (size_t)m * n * n;
+  T* x = gx + (size_t)m * n * k + c;  // entry l at x[l k]
+  // this thread's entry: w (forward, from b) or y (backward, from x)
+  T v = T(0);
+  if (tid < ns)
+    v = bwd ? x[(size_t)(r0 + tid) * k]
+            : gb[(size_t)m * n * k + (size_t)(r0 + tid) * k + c];
+  // the tiles in the order of use, then the diagonal block (item nt)
+  const int nt = bwd ? S - 1 - s : s;
+  auto issue = [&](int it) {
+    T* dst = tiles + (it % NBUF) * W * LD;
+    int row0 = r0, nrows = ns, col0 = r0, ncols = ns;
+    if (it < nt) {
+      const int p = bwd ? S - 1 - it : it, pw = min(W, n - p * W);
+      if (bwd) {
+        col0 = p * W;
+        ncols = pw;
+      } else {
+        row0 = p * W;
+        nrows = pw;
+      }
+    }
+    for (int rr = 0; rr < W; ++rr) {
+      const bool ok = rr < nrows && tid < ncols;
+      cp_elem(dst + rr * LD + tid,
+              ok ? R + (size_t)(row0 + rr) * n + col0 + tid : R, ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  issue(0);
+  for (int it = 0;; ++it) {
+    const bool ahead = NBUF == 2 && it < nt;
+    if (ahead) issue(it + 1);
+    if (it < nt) {
+      const int p = bwd ? S - 1 - it : it, pw = min(W, n - p * W);
+      if (tid == 0)
+        while (ld_acquire(flag + p) == 0) {
         }
+      __syncthreads();
+      ys[tid] = tid < pw ? __ldcg(x + (size_t)(p * W + tid) * k) : T(0);
+    }
+    if (ahead)
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    else
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (it == nt) break;
+    const T* tl = tiles + (it % NBUF) * W * LD;
+    if (bwd) {
 #pragma unroll
-        for (int w = 0; w < GW_CHUNK; ++w) {
-          const int l = l0 + GW_THREADS * w;
-          if (fwd ? l > j && l < n : l < j)
-            v[l * ks] = fwd ? vv[w] - q * rv[w] : vv[w] - rv[w] * q;
-          else if (l == late)
-            v[l * ks] = prev;
+      for (int kk = W - 1; kk >= 0; --kk) v = v - tl[tid * LD + kk] * ys[kk];
+    } else {
+#pragma unroll
+      for (int j = 0; j < W; ++j) v = v - ys[j] * tl[j * LD + tid];
+    }
+    __syncthreads();
+    if (NBUF == 1) issue(it + 1);
+  }
+  ys[tid] = v;
+  __syncthreads();
+  if (tid >= 32) return;
+  // the diagonal block, lane t owning entries t, t + 32, ... of the stripe
+  const int lane = tid;
+  const T* D = tiles + (nt % NBUF) * W * LD;
+  T e[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) e[i] = ys[lane + 32 * i];
+  if (!bwd) {
+    // y_j = w_j / D_jj, then w_l -= y_j D_jl for l > j; u = w_j
+    T u = __shfl_sync(QP_FULL_MASK, e[0], 0);
+#pragma unroll
+    for (int i0 = 0; i0 < E; ++i0) {
+      for (int jj = 0; jj < 32; ++jj) {
+        const int j = 32 * i0 + jj;
+        if (j >= ns) break;
+        const T wn = __shfl_sync(
+            QP_FULL_MASK, jj < 31 ? e[i0] : e[i0 + 1 < E ? i0 + 1 : i0],
+            (j + 1) & 31);
+        const T djj = D[j * LD + j], dn = j + 1 < ns ? D[j * LD + j + 1] : T(0);
+        const T yj = div_rn(u, djj);
+        u = wn - yj * dn;  // w_{j+1}, as its owner forms it below
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          const int l = lane + 32 * i;
+          if (l > j && l < ns) e[i] = e[i] - yj * D[j * LD + l];
+          if (l == j) e[i] = yj;
         }
       }
-      prev = q;
-      dr[d] = diag(s + D);
-      __syncthreads();
+    }
+  } else {
+    // x_l = y_l / D_ll, then y_r -= D_rl x_l for r < l; u = y_l
+    T u = T(0);
+#pragma unroll
+    for (int i0 = E - 1; i0 >= 0; --i0) {
+      for (int jj = 31; jj >= 0; --jj) {
+        const int l = 32 * i0 + jj;
+        if (l >= ns) continue;
+        if (l == ns - 1) u = __shfl_sync(QP_FULL_MASK, e[i0], jj);
+        const T yp = __shfl_sync(
+            QP_FULL_MASK, jj > 0 ? e[i0] : e[i0 > 0 ? i0 - 1 : 0],
+            (l - 1) & 31);
+        const T dll = D[l * LD + l], dp = l > 0 ? D[(l - 1) * LD + l] : T(0);
+        const T xl = div_rn(u, dll);
+        u = yp - dp * xl;  // y_{l-1}, as its owner forms it below
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          const int r = lane + 32 * i;
+          if (r < l) e[i] = e[i] - D[r * LD + l] * xl;
+          if (r == l) e[i] = xl;
+        }
+      }
     }
   }
-  if constexpr (VSM) {
-    for (int l = tid; l < n; l += GW_THREADS)
-      xc[(size_t)l * k] = l == 0 ? prev : v[l];
-  } else {
-    if (tid == 0) v[0] = prev;  // x_0
+  // publish the stripe's values, then its flag
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int l = lane + 32 * i;
+    if (l < ns) x[(size_t)(r0 + l) * k] = e[i];
   }
+  __threadfence();
+  __syncwarp();
+  if (lane == 0) st_release(flag + s, 1);
 }
 
 template <typename T>
@@ -899,11 +1308,11 @@ int launch_chol_solve_entry(const T* R, const T* b, T* x, int B, int n,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PROF, bool GPAN>
-int launch_cluster(const T* M, T* R, int B, int n, int C, int b, T* panel,
+template <typename T, bool PROF>
+int launch_cluster(const T* M, T* R, int B, int n, int C, int b,
                    cudaStream_t s, long long* prof) {
-  const int smem = GPAN ? 0 : (int)cluster_smem_bytes(n, sizeof(T), b);
-  auto kern = chol_cluster_kernel<T, PROF, GPAN>;
+  const int smem = (int)cluster_smem_bytes(n, sizeof(T), b);
+  auto kern = chol_cluster_kernel<T, PROF>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -919,7 +1328,7 @@ int launch_cluster(const T* M, T* R, int B, int n, int C, int b, T* panel,
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, M, R, n, b, panel, prof);
+  e = cudaLaunchKernelEx(&cfg, kern, M, R, n, b, prof);
   if (e != cudaSuccess) {
     cudaGetLastError();  // a refused launch leaves nothing to report later
     return (int)e;
@@ -927,27 +1336,17 @@ int launch_cluster(const T* M, T* R, int B, int n, int C, int b, T* panel,
   return (int)cudaGetLastError();
 }
 
-// panel: null for the panel in shared memory (b rows must fit a CTA), else
-// a 16-byte aligned global scratch of B C cluster_smem_bytes(n, es, b)
-// bytes, CTA i's panel at byte i cluster_smem_bytes(n, es, b)
+// b rows a panel must fit a CTA's shared memory
 template <typename T>
-int launch_global(const T* M, T* R, int B, int n, int C, int b, T* panel,
+int launch_global(const T* M, T* R, int B, int n, int C, int b,
                   void* stream, long long* prof) {
   if (C < 1 || C > CLUSTER_MAX || b < CTILE || b % CTILE ||
-      (panel ? (size_t)panel % 16 != 0
-             : cluster_smem_bytes(n, sizeof(T), b) > 232448))
+      cluster_smem_bytes(n, sizeof(T), b) > 232448)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || n == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (panel)
-    return prof ? launch_cluster<T, true, true>(M, R, B, n, C, b, panel, s,
-                                                prof)
-                : launch_cluster<T, false, true>(M, R, B, n, C, b, panel, s,
-                                                 nullptr);
-  return prof ? launch_cluster<T, true, false>(M, R, B, n, C, b, nullptr, s,
-                                               prof)
-              : launch_cluster<T, false, false>(M, R, B, n, C, b, nullptr, s,
-                                                nullptr);
+  return prof ? launch_cluster<T, true>(M, R, B, n, C, b, s, prof)
+              : launch_cluster<T, false>(M, R, B, n, C, b, s, nullptr);
 }
 
 template <typename T, int E>
@@ -981,24 +1380,69 @@ int launch_solve_global(const T* R, const T* b, T* x, int B, int n, int k,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int launch_solve_wide(const T* R, const T* b, T* x, int B, int n, int k,
-                      void* stream) {
-  if (B == 0 || n == 0 || k == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)n * sizeof(T);
-  if (smem > 232448) {
-    chol_solve_wide_kernel<T, false><<<dim3(B, k), GW_THREADS, 0, s>>>(
-        R, b, x, n, k);
-    return (int)cudaGetLastError();
-  }
+template <typename T, int W>
+int launch_stripe_w(const T* R, const T* b, T* x, int B, int n, int k,
+                    int* sync, cudaStream_t s) {
+  const int S = (n + W - 1) / W, smem = stripe_smem_bytes<T, W>();
+  auto kern = chol_solve_stripe_kernel<T, W>;
   cudaError_t e = cudaFuncSetAttribute(
-      chol_solve_wide_kernel<T, true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  chol_solve_wide_kernel<T, true><<<dim3(B, k), GW_THREADS, smem, s>>>(
-      R, b, x, n, k);
+  for (int bwd = 0; bwd < 2; ++bwd) {
+    kern<<<dim3(S, k, B), W, smem, s>>>(R, b, x, n, k, bwd, sync);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+template <typename T>
+int launch_solve_stripe(const T* R, const T* b, T* x, int B, int n, int k,
+                        int w, int* sync, void* stream) {
+  if (B == 0 || n == 0 || k == 0) return 0;
+  if (B > 65535 || k > 65535 || !sync) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (w) {
+    case 32: return launch_stripe_w<T, 32>(R, b, x, B, n, k, sync, s);
+    case 64: return launch_stripe_w<T, 64>(R, b, x, B, n, k, sync, s);
+    case 128: return launch_stripe_w<T, 128>(R, b, x, B, n, k, sync, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int BR, bool PROF>
+int launch_grid_b(const T* M, T* R, int B, int n, int ctas, cudaStream_t s,
+                  long long* prof) {
+  const int groups = B < ctas ? B : ctas, per = ctas / groups;
+  const int smem = grid_smem_bytes<T, BR>();
+  auto kern = chol_grid_kernel<T, BR, PROF>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {(void*)&M, (void*)&R, (void*)&B, (void*)&n, (void*)&per,
+                  (void*)&prof};
+  e = cudaLaunchCooperativeKernel((const void*)kern, dim3(groups * per),
+                                  dim3(GRID_THREADS), args, smem, s);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves nothing to report later
+    return (int)e;
+  }
   return (int)cudaGetLastError();
+}
+
+// ctas CTAs in all (one an SM; the card refuses more than it keeps
+// resident), panels of b rows (GRID_BS in linalg/chol.py)
+template <typename T>
+int launch_grid(const T* M, T* R, int B, int n, int ctas, int b,
+                void* stream, long long* prof) {
+  if (ctas < 1 || (b != 32 && b != 64)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || n == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (b == 32)
+    return prof ? launch_grid_b<T, 32, true>(M, R, B, n, ctas, s, prof)
+                : launch_grid_b<T, 32, false>(M, R, B, n, ctas, s, nullptr);
+  return prof ? launch_grid_b<T, 64, true>(M, R, B, n, ctas, s, prof)
+              : launch_grid_b<T, 64, false>(M, R, B, n, ctas, s, nullptr);
 }
 
 }  // namespace
@@ -1011,17 +1455,15 @@ extern "C" int qp_chol(const void* M, void* R, int B, int n, int f64,
 }
 
 // the global-memory plan: a cluster of `cluster` CTAs a matrix, panels of
-// b rows, the trailing triangle in R; panel (or null: shared memory) the
-// global scratch of the panels (launch_global); prof (8 B cluster int64s,
-// or null) takes the cycle counters of the profiled instantiation
+// b rows in shared memory, the trailing triangle in R; prof (8 B cluster
+// int64s, or null) takes the cycle counters of the profiled instantiation
 extern "C" int qp_chol_global(const void* M, void* R, int B, int n, int f64,
-                              int cluster, int b, void* panel, void* prof,
-                              void* stream) {
+                              int cluster, int b, void* prof, void* stream) {
   long long* pr = (long long*)prof;
   return f64 ? launch_global((const double*)M, (double*)R, B, n, cluster, b,
-                             (double*)panel, stream, pr)
+                             stream, pr)
              : launch_global((const float*)M, (float*)R, B, n, cluster, b,
-                             (float*)panel, stream, pr);
+                             stream, pr);
 }
 
 // the global-memory solve: threads a block and entries a thread as
@@ -1037,14 +1479,27 @@ extern "C" int qp_chol_solve_global(const void* R, const void* b, void* x,
                                    stream);
 }
 
-// the global solve past its reach, at any n; x must not overlap b
-extern "C" int qp_chol_solve_wide(const void* R, const void* b, void* x,
-                                  int B, int n, int k, int f64,
-                                  void* stream) {
-  return f64 ? launch_solve_wide((const double*)R, (const double*)b,
-                                 (double*)x, B, n, k, stream)
-             : launch_solve_wide((const float*)R, (const float*)b,
-                                 (float*)x, B, n, k, stream);
+// the grid factor: ctas CTAs shared out over the B matrices, panels of b
+// rows; prof (8 ctas int64s, or null) takes the cycle counters of the
+// profiled instantiation
+extern "C" int qp_chol_grid(const void* M, void* R, int B, int n, int f64,
+                            int ctas, int b, void* prof, void* stream) {
+  long long* pr = (long long*)prof;
+  return f64 ? launch_grid((const double*)M, (double*)R, B, n, ctas, b,
+                           stream, pr)
+             : launch_grid((const float*)M, (float*)R, B, n, ctas, b, stream,
+                           pr);
+}
+
+// the stripe solve, stripes of w entries (32, 64 or 128); sync: 2 B k
+// (ceil(n / w) + 1) zeroed ints; x must not overlap b
+extern "C" int qp_chol_solve_stripe(const void* R, const void* b, void* x,
+                                    int B, int n, int k, int w, void* sync,
+                                    int f64, void* stream) {
+  return f64 ? launch_solve_stripe((const double*)R, (const double*)b,
+                                   (double*)x, B, n, k, w, (int*)sync, stream)
+             : launch_solve_stripe((const float*)R, (const float*)b,
+                                   (float*)x, B, n, k, w, (int*)sync, stream);
 }
 
 // The shared-memory solve, `cols` right-hand sides per block.  kind 1:

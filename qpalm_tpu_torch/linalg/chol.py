@@ -15,10 +15,12 @@ the plain twin; a CUDA tensor goes to a kernel, in the memory plan
 in one block's shared memory where it fits (f32 n <= 241, f64 n <= 170
 for the factor), else in global memory, in the same order of operations:
 past shared memory the factor runs right-looking in panels across a
-thread block cluster, in the shape `global_plan` picks, with each CTA's
-panel in its shared memory while a panel of 8 rows fits there (f32 n <=
-7264, f64 n <= 3632), else in a global scratch (the "wide" plans; the
-solve's likewise past its vectors' shared memory or its ring's entries).
+thread block cluster, in the shape `global_plan` picks, while a panel of 8
+rows fits a CTA's shared memory (f32 n <= 7264, f64 n <= 3632), and past
+that n across the whole card, one CTA an SM with a grid barrier a step
+(the grid factor, the "wide" factor plan); the solve likewise, past its
+vectors' shared memory or its ring's entries, cuts each column into
+stripes, a CTA a stripe (the stripe solve, the "wide" solve plan).
 Only a dtype no kernel takes raises; nothing falls back to a library call
 or to the twin.  Each wrapper counts its launches in `.launches`, and
 `KERNEL_LAUNCHES` counts them by kernel (the names of KERNELS).
@@ -41,6 +43,24 @@ PANEL = 8  # rows of a panel of the blocked solve kernel (csrc/chol.cu)
 CLUSTER_TILE = 8
 CLUSTER_THREADS = 256
 CLUSTER_MAX = 8
+# the grid factor (chol_grid_kernel): threads a CTA, the panel rows it is
+# instantiated for and the ones the plans take (GRID_B_WIDE past the
+# cluster factor's limit, GRID_B below it); below that limit global_plan
+# takes it for at most GRID_B_MAX matrices from GRID_N_MIN on: each where
+# it measured faster (PERF.md, tools/chol_plans.py)
+GRID_THREADS = 256
+GRID_BS = (32, 64)
+GRID_B, GRID_B_WIDE = 32, 64
+GRID_B_MAX = 8
+GRID_N_MIN = {torch.float32: 960, torch.float64: 640}
+# the stripe solve (chol_solve_stripe_kernel): the stripe widths it is
+# instantiated for and the one the plans take by dtype; below the global
+# solve's limits solve_plan takes it for at most STRIPE_BK_MAX columns in
+# all from n = STRIPE_N_MIN on, where it measured faster (PERF.md)
+STRIPE_WS = (32, 64, 128)
+STRIPE_W = {torch.float32: 64, torch.float64: 32}
+STRIPE_BK_MAX = 16
+STRIPE_N_MIN = 480
 
 
 # launches by kernel: (factor or solve, plan, dtype) -> name
@@ -49,7 +69,8 @@ KERNELS = {
     ("factor", "smem", torch.float64): "chol_f64",
     ("factor", "global", torch.float32): "chol_global",
     ("factor", "global", torch.float64): "chol_global_f64",
-    # the cluster factor with its panels in a global scratch
+    # the grid factor (past the cluster factor's panel, and wherever
+    # global_plan picks it)
     ("factor", "wide", torch.float32): "chol_global_wide",
     ("factor", "wide", torch.float64): "chol_global_wide_f64",
     ("solve", "smem", torch.float32): "chol_solve",
@@ -60,7 +81,8 @@ KERNELS = {
     # the global plan with several right-hand sides (the polish's identity)
     ("solve", "global_cols", torch.float32): "chol_solve_global_cols",
     ("solve", "global_cols", torch.float64): "chol_solve_global_cols_f64",
-    # the global solve past its reach, any k (chol_solve_wide_kernel)
+    # the stripe solve (past the global solve's reach, and wherever
+    # solve_plan picks it), any k
     ("solve", "wide", torch.float32): "chol_solve_global_wide",
     ("solve", "wide", torch.float64): "chol_solve_global_wide_f64",
 }
@@ -97,28 +119,22 @@ def _esize(dtype, name) -> int:
 def global_smem_bytes(n: int, dtype, b: int) -> int:
     """The panel of a CTA of the cluster factor (csrc/chol.cu,
     cluster_smem_bytes), b rows of CLUSTER_TILE * ceil(n / CLUSTER_TILE)
-    elements: its dynamic shared memory, or (a wide plan) its slice of the
-    global scratch."""
+    elements: its dynamic shared memory."""
     es = _esize(dtype, "cholesky_upper")
     return es * b * -(-n // CLUSTER_TILE) * CLUSTER_TILE
 
 
-# the cluster factor's shape: CTAs a matrix, rows a panel, and where each
-# CTA's panel lives, "smem" (its shared memory) or "global" (its slice of a
-# scratch that the wrapper allocates: the wide plan)
-GlobalPlan = collections.namedtuple("GlobalPlan", "cluster b panel",
-                                    defaults=("smem",))
-WIDE_B = 32  # rows a panel of the wide plan
+# the cluster factor's shape: CTAs a matrix (a cluster) and rows a panel;
+# the grid factor's: CTAs in all (one an SM) and rows a panel
+GlobalPlan = collections.namedtuple("GlobalPlan", "cluster b")
+GridPlan = collections.namedtuple("GridPlan", "ctas b")
 
 
-def panel_scratch_bytes(B: int, n: int, dtype, plan: GlobalPlan) -> int:
-    """Bytes of the global scratch the cluster factor's wide plan takes
-    (csrc/chol.cu, launch_global): a panel for each of its B * cluster
-    CTAs, CTA i's at byte i * global_smem_bytes; 0 for panels in shared
-    memory."""
-    if plan.panel != "global":
-        return 0
-    return B * plan.cluster * global_smem_bytes(n, dtype, plan.b)
+def stripe_sync_ints(B: int, n: int, k: int, w: int) -> int:
+    """The stripe solve's tickets and flags (csrc/chol.cu,
+    chol_solve_stripe_kernel), zeroed by the wrapper: for each pass and
+    each of the B k columns a ticket and a flag a stripe of w entries."""
+    return 2 * B * k * (-(-n // w) + 1)
 
 
 # the global solve (csrc/chol.cu, chol_solve_global_kernel): threads a
@@ -144,28 +160,33 @@ def global_solve_shape(n: int, dtype) -> tuple[int, int]:
     return nt, E
 
 
-def global_plan(B: int, n: int, dtype, sms: int = 132) -> GlobalPlan:
-    """The cluster factor's shape for B matrices n x n past shared memory:
-    the largest cluster C of 1, 2, 4 or 8 CTAs a matrix with B C <= sms
-    (C = 1 past sms matrices), so that every matrix runs at once, one CTA
-    an SM, and panels of 32 rows (16 or 8 where 32 do not fit a CTA's
-    shared memory).  At the general loop's B = 64 that is 2 CTAs a matrix.
-    Where not even a panel of 8 rows fits a CTA (f32 n > 7264, f64 n >
-    3632) each CTA's panel of WIDE_B rows lives in a global scratch (the
-    wide plan).  Raises ValueError only for a dtype no kernel takes."""
+def global_plan(B: int, n: int, dtype, sms: int = 132):
+    """The factor's plan for B matrices n x n past shared memory: the
+    cluster factor, GlobalPlan(C, b), the largest cluster C of 1, 2, 4 or 8
+    CTAs a matrix with B C <= sms (C = 1 past sms matrices), so that every
+    matrix runs at once, one CTA an SM, and panels of b = 32 rows (16 or 8
+    where 32 do not fit a CTA's shared memory); at the general loop's B =
+    64 that is 2 CTAs a matrix.  The grid factor, the card's sms CTAs
+    shared out over the matrices: GridPlan(sms, GRID_B_WIDE) where not
+    even a panel of 8 rows fits a CTA (f32 n > 7264, f64 n > 3632), and
+    GridPlan(sms, GRID_B) for at most GRID_B_MAX matrices from GRID_N_MIN
+    on.  Raises ValueError only for a dtype no kernel takes."""
+    if global_smem_bytes(n, dtype, 8) > SMEM_LIMIT:
+        return GridPlan(sms, GRID_B_WIDE)
+    if B <= GRID_B_MAX and n >= GRID_N_MIN[dtype]:
+        return GridPlan(sms, GRID_B)
     C = max(c for c in (1, 2, 4, CLUSTER_MAX) if c == 1 or B * c <= sms)
-    for b in (32, 16, 8):
-        if global_smem_bytes(n, dtype, b) <= SMEM_LIMIT:
-            return GlobalPlan(C, b)
-    return GlobalPlan(C, WIDE_B, "global")
+    b = next(b for b in (32, 16, 8)
+             if global_smem_bytes(n, dtype, b) <= SMEM_LIMIT)
+    return GlobalPlan(C, b)
 
 
 def factor_plan(n: int, dtype) -> str:
     """The factor's memory plan: "smem" while the n x n matrix fits one
-    block's shared memory, else "global" (the cluster factor) while a CTA's
-    shared memory holds a panel of 8 rows, else "wide" (the cluster factor,
-    its panels in a global scratch); raises ValueError for a dtype no
-    kernel takes."""
+    block's shared memory, else "global" (global_plan's) while a CTA's
+    shared memory holds a panel of 8 rows of the cluster factor, else
+    "wide" (the grid factor); raises ValueError for a dtype no kernel
+    takes."""
     es = _esize(dtype, "cholesky_upper")
     if n * n * es <= SMEM_LIMIT:
         return "smem"
@@ -181,10 +202,10 @@ def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
     memory), "entry" (R and up to 64 columns in shared memory: f64 with
     several columns or odd n, f32 n not a multiple of PANEL) or "global"
     (one column a block, the column and R's diagonal in shared memory,
-    while they fit and n <= GS_N_MAX) or "wide" (one column a block, any
-    n: R's diagonal through registers, the column in shared memory while
-    it fits, else in x's); raises ValueError only for a dtype no kernel
-    takes."""
+    while they fit and n <= GS_N_MAX) or "wide" (the stripe solve: a CTA a
+    stripe of STRIPE_W entries of each column, every n and k past those,
+    and at most STRIPE_BK_MAX columns in all from STRIPE_N_MIN on); raises
+    ValueError only for a dtype no kernel takes."""
     es = _esize(dtype, "cholesky_solve")
     if dtype == torch.float32 and n % PANEL == 0:
         cols = 64 if B * -(-k // 64) >= sms else 32
@@ -198,7 +219,8 @@ def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
         return "entry", cols
     # the global plan's two n-vectors in shared memory (f64 n <= 14528),
     # and at most GS_E_MAX entries of each a thread (n <= GS_N_MAX)
-    if 2 * n * es <= SMEM_LIMIT and n <= GS_N_MAX:
+    few = B * k <= STRIPE_BK_MAX and n >= STRIPE_N_MIN
+    if 2 * n * es <= SMEM_LIMIT and n <= GS_N_MAX and not few:
         return "global", 1
     return "wide", 1
 
@@ -264,26 +286,35 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-# the cluster factor's sections, by its cycle counters
+# the cluster factor's sections and the grid factor's, by their cycle
+# counters
 CLUSTER_SECTIONS = ("gather", "panel", "trailing", "cluster_wait", "write")
+GRID_SECTIONS = ("diagonal", "slice", "trailing", "barrier", "write")
 
 
-def _launch_global(M: torch.Tensor, R: torch.Tensor, plan: GlobalPlan,
+def prof_ctas(B: int, plan) -> int:
+    """CTAs of a launch in `plan` (rows of its profile): B clusters of
+    plan.cluster, or the grid factor's groups of plan.ctas // groups."""
+    if isinstance(plan, GridPlan):
+        groups = min(B, plan.ctas)
+        return groups * (plan.ctas // groups)
+    return B * plan.cluster
+
+
+def _launch_global(M: torch.Tensor, R: torch.Tensor, plan,
                    prof: torch.Tensor | None = None) -> int:
-    """Launch the cluster factor on contiguous CUDA M and R in the shape
-    `plan` (a wide plan's panels in a scratch allocated here); returns the
-    C entry point's error code.  prof, an int64 CUDA tensor of (B *
-    plan.cluster, 8), runs the profiled instantiation, which takes each
-    CTA's cycles by section (CLUSTER_SECTIONS, counted by its thread 0)."""
+    """Launch the factor past shared memory on contiguous CUDA M and R in
+    `plan` (a GlobalPlan: the cluster factor; a GridPlan: the grid factor,
+    a cooperative launch); returns the C entry point's error code.  prof,
+    an int64 CUDA tensor of (prof_ctas(B, plan), 8), runs the profiled
+    instantiation, which takes each CTA's cycles by section
+    (CLUSTER_SECTIONS or GRID_SECTIONS, counted by its thread 0)."""
     B, n, _ = M.shape
-    nbytes = panel_scratch_bytes(B, n, M.dtype, plan)
-    # the stream orders the kernel before any reuse of the freed scratch
-    pan = torch.empty(nbytes // M.element_size(), dtype=M.dtype,
-                      device=M.device) if nbytes else None
-    return kernels().qp_chol_global(
-        M.data_ptr(), R.data_ptr(), B, n, int(M.dtype == torch.float64),
-        plan.cluster, plan.b, None if pan is None else pan.data_ptr(),
-        None if prof is None else prof.data_ptr(), _stream())
+    fn = (kernels().qp_chol_grid if isinstance(plan, GridPlan)
+          else kernels().qp_chol_global)
+    return fn(M.data_ptr(), R.data_ptr(), B, n,
+              int(M.dtype == torch.float64), plan[0], plan.b,
+              None if prof is None else prof.data_ptr(), _stream())
 
 
 def cholesky_upper(M: torch.Tensor) -> torch.Tensor:
@@ -313,6 +344,8 @@ def cholesky_upper(M: torch.Tensor) -> torch.Tensor:
             rc = _launch_global(M, R, gplan)
     check_launch("qp_chol", rc)
     cholesky_upper.launches += 1
+    if isinstance(gplan, GridPlan):
+        plan = "wide"
     KERNEL_LAUNCHES[KERNELS["factor", plan, M.dtype]] += 1
     return R
 
@@ -348,7 +381,13 @@ def cholesky_solve(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                           *global_solve_shape(n, R.dtype),
                                           int(f64), _stream())
         elif plan == "wide":
-            rc = lib.qp_chol_solve_wide(*ptrs, int(f64), _stream())
+            # the tickets and flags; the stream orders the launches before
+            # any reuse of the freed memory
+            w = STRIPE_W[R.dtype]
+            sync = torch.zeros(stripe_sync_ints(B, n, k, w),
+                               dtype=torch.int32, device=R.device)
+            rc = lib.qp_chol_solve_stripe(*ptrs, w, sync.data_ptr(),
+                                          int(f64), _stream())
         else:
             rc = lib.qp_chol_solve(*ptrs, cols, _SOLVE_KINDS[plan],
                                    int(f64), _stream())

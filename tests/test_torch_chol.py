@@ -220,18 +220,28 @@ def test_factor_plan_selection(n, dtype, plan):
     (64, 256, 256, torch.float32, ("global", 1)),
     (8, 200, 3, torch.float64, ("global", 1)),
     (8, 200, 1, torch.float64, ("global", 1)),
-    (1, 14528, 1, torch.float64, ("global", 1)),
+    (1, 14528, 1, torch.float64, ("wide", 1)),
     (1, 14529, 1, torch.float64, ("wide", 1)),
-    (1, 16384, 2, torch.float32, ("global", 1)),
-    (1, 16385, 2, torch.float32, ("wide", 1))])
+    (1, 16384, 2, torch.float32, ("wide", 1)),
+    (1, 16385, 2, torch.float32, ("wide", 1)),
+    (64, 14528, 1, torch.float64, ("global", 1)),
+    (64, 14529, 1, torch.float64, ("wide", 1)),
+    (64, 16384, 2, torch.float32, ("global", 1)),
+    (64, 16385, 2, torch.float32, ("wide", 1)),
+    (1, 479, 1, torch.float64, ("global", 1)),
+    (1, 480, 1, torch.float64, ("wide", 1)),
+    (4, 480, 4, torch.float32, ("wide", 1)),
+    (4, 480, 5, torch.float32, ("global", 1))])
 def test_solve_plan_selection(B, n, k, dtype, plan):
     """The solve: the blocked kernel for f32 n a multiple of 8 whose plan
     fits, a warp a matrix for f64 one-vector solves of even n that fit,
     else R and the columns in shared memory, else global memory: the
-    column and R's diagonal in shared memory while they fit and n <= 16384,
-    else the wide plan (every n).  The global plan counts its one-vector
-    solves and its solves of several columns (the polish's identity from
-    f32 n = 212) apart."""
+    column and R's diagonal in shared memory while they fit and n <= 16384
+    for more than 16 columns in all (or n < 480), else the wide plan (the
+    stripe solve: every n, and at most 16 columns from n = 480 on, where
+    it measured faster).  The global plan counts its one-vector solves and
+    its solves of several columns (the polish's identity from f32 n = 212)
+    apart."""
     assert chol.solve_plan(B, n, k, dtype, sms=132) == plan
     if plan[0] == "global":
         assert chol.solve_kernel(plan[0], k, dtype) == (

@@ -36,10 +36,14 @@ general loop solves randomQP n=480, and the identity at f32 (64, 480,
 `--kernel chol`: K2a (`linalg.chol.cholesky_upper`) on phase 3's batch,
 and the cluster factor at (64, 480, 480) in f32 and f64 on an SPD batch
 from `default_rng(1)`, timed the same way.
-`--kernel chol_wide`: K2b's wide plan (`chol_solve_wide_kernel`), one
-vector, at f64 n = 14536 and f32 n = 16392 (chip_smoke.py phase 15's
-sizes: R a random upper triangle with a dominant diagonal from a seeded
-CUDA generator), each the mean of 5 launches, queued as above.
+`--kernel chol_wide`: K2's wide plans at chip_smoke.py phase 15's sizes:
+the solve (`linalg.chol.cholesky_solve`; the stripe solve since PR 12),
+one vector, at f64 n = 14536 and f32 n = 16392 (R a random upper
+triangle with a dominant diagonal from a seeded CUDA generator), and the
+factor (`linalg.chol.cholesky_upper`; the grid factor since PR 12) at f64
+(1, 3640, 3640) and f32 (1, 7272, 7272) (G G' + n I, G from a seeded
+CUDA generator), each the mean of 5 launches, queued as above, with a
+hash of its output.
 `--kernel general`: the general loop end to end, `batch.solve_batch` of the
 sweep's randomQP n=480 row (B=64) at the default `Settings()` (f64), as
 chip_smoke.py phase 14 runs it: the host wall of two solves after one
@@ -158,6 +162,15 @@ elif sys.argv[2] == "chol_wide":
         runs[f"{dt} (1, {n})"] = queued(lambda: chol.cholesky_solve(Rw, bw),
                                         5)
         del Rw
+    for n, dt in ((3640, torch.float64), (7272, torch.float32)):
+        g = torch.Generator(device="cuda").manual_seed(15)
+        G = torch.randn((1, n, n), generator=g, device="cuda", dtype=dt)
+        Mw = G @ G.transpose(1, 2) + n * torch.eye(n, device="cuda",
+                                                   dtype=dt)
+        del G
+        runs[f"{dt} (1, {n}, {n})"] = queued(
+            lambda: chol.cholesky_upper(Mw), 5)
+        del Mw
 elif sys.argv[2] == "general":
     from qpalm_tpu_torch import sweep
     from qpalm_tpu_torch.batch import solve_batch
