@@ -105,7 +105,32 @@ Phases, each asserting, any failure exiting non-zero:
      max_iter) on one randomQP n=3640 problem (m = n): solved, the f64
      referee holding its KKT residuals within the settings' eps, both wide
      kernels launched (the counters zeroed before and read after), its
-     wall and K2's share of it (launches by kernel times their time).
+     wall and K2's share of it (launches by kernel times their time);
+ 16. the single-problem front end (api.QPALM and solve, the KKT method,
+     the MPC chain, large.solve_large_dense, diff.solve_diff) on the card,
+     K2 at each run's shapes held bit for bit to its twins and timed first:
+     (a) README.md's Quick start (solve, then QPALM cold, warm start,
+     update_bounds, re-solve: all solved); (b) randomQP n=1024 m=1536
+     (density 0.15, seed 0) at f64 Settings() through QPALM with SCHUR
+     and with KKT (solved, the referee within eps, the grid factor and
+     the stripe solve launched), the SCHUR x bit-identical with equal
+     iterations to solve_batch([p]), bounds x 1.1 with a warm start
+     (solved in fewer iterations), and a time limit that cuts the solve
+     (TIME_LIMIT_REACHED); (c) SequentialMPC(6, 20) (n=340, m=580), a cold
+     step and 25 warm-started steps, each solved, refereed at 1e-6 with
+     |x| < 4, solves/s and the iteration p50 and max printed, the cluster
+     factor and the global solve launched; (d) solve_large_dense on 3
+     randomQP n=2048 m=3072 (every lane ok and refereed, the f32 grid
+     factor and stripe solve launched, t_device_s and t_polish_s printed)
+     and with device_polish=True at n=512 m=768 (every lane ok, the
+     identity solve chol_solve_global_cols launched); (e) solve_diff at
+     n=256 m=384 f64: the card's gradients against the CPU's within 1e-6
+     relative or 4 kappa(K) eps of the backward system, central differences
+     of 5 q and 5 bmax coordinates within 1e-4, a batch of 4 against four
+     single calls, K2 launched in the backward pass.  Each run's counters
+     are zeroed just before it and read just after; the kernels line's
+     rows for the MPC's and the randomQP's K2 kernels carry the suffixes
+     _mpc and _qpalm.
 
 It prints a JSON line of the kernels' numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}} only when every phase passed.
@@ -163,10 +188,10 @@ DEFAULT_X_BAR, TIGHT_X_BAR = 1e-3, 1e-4
 # one vector a matrix).  Each kernels-line row is timed at the shape of the
 # phase-14 run whose launches it counts: the headline (512, 64) at
 # Settings() for f64 in shared memory and at f32 for the one-vector panel
-# solve, randomQP n=480 (64 problems) at f32 and f64 for the global plan;
-# the identity at f32 (64, 480, 480), the device polish's explicit inverse
-# at that n, counts the f32 row's launches (none: its polish runs on the
-# host).  f64 (128, 224) and the ragged shapes (n not a multiple of the cluster factor's 8-row
+# solve, randomQP n=480 (64 problems) at f32 and f64 for the global plan.
+# The identity at f32 (64, 480, 480), the device polish's explicit inverse
+# at that n, has no row here: phase 16's device polish launches it, and
+# its row is timed there.  f64 (128, 224) and the ragged shapes (n not a multiple of the cluster factor's 8-row
 # tiles, a ragged last panel, rows of R not 16-byte aligned) are held to
 # the twins without a row of their own.  Every shape's matrices come from
 # one stream, so a shape is appended, never inserted.
@@ -186,7 +211,7 @@ K2_SHAPES = (
     ("f32 (37, 483)", 37, 483, "float32", ("global", "global"),
      (None, None), False),
     ("f32 (64, 480, 480) identity", 64, 480, "float32", ("global", "global"),
-     (None, "chol_solve_global_cols"), True))
+     (None, None), True))
 # phase 14: lanes of the headline at Settings() held on the card to the
 # port's own general loop on the CPU, at the CPU tests' f64 bar
 CPU_LANES = 32
@@ -201,6 +226,17 @@ WIDE_FACTORS = ((1, 3640, "float64"), (2, 3640, "float64"),
                 (1, 7272, "float32"))
 WIDE_SOLVES = ((14536, "float64"), (16392, "float32"))
 WIDE_QP_N = 3640
+# phase 16: the front end.  randomQP (n, m) at density 0.15, seed 0
+# (benchmarks/RESULTS_large_single.md's protocol, its middle row); the MPC
+# chain's warm steps (scripts/bench_mpc.py's defaults: 6 masses, horizon
+# 20, 25 steps); solve_large_dense on FE_LARGE_B problems at that file's
+# largest row and, with the device polish, at its smallest; solve_diff at
+# (n, m)
+FE_QP = (1024, 1536)
+FE_MPC, FE_MPC_STEPS = (6, 20), 25
+FE_LARGE, FE_LARGE_POLISH, FE_LARGE_B = (2048, 3072), (512, 768), 3
+FE_DIFF = (256, 384)
+FE_MPC_NPAD = 344  # FE_MPC's n = 340, padded to a multiple of 8
 
 
 def bound(flops, nbytes, peak=F32_PEAK):
@@ -868,18 +904,10 @@ def k2_against_twins(chol, M, b, label):
 def general_solve(dev, probs, s, label, **kw):
     """solve_batch on the card with the K2 counters zeroed before and read
     after; returns (result, wall seconds, launches by kernel)."""
-    import torch
-
     from qpalm_tpu_torch.batch import solve_batch
-    from qpalm_tpu_torch.linalg import chol
 
-    torch.cuda.synchronize()
-    chol.KERNEL_LAUNCHES.clear()
-    t0 = time.perf_counter()
-    res = solve_batch(probs, s, device=dev, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(chol.KERNEL_LAUNCHES)
+    res, wall, launches = counted(lambda: solve_batch(probs, s, device=dev,
+                                                      **kw))
     say(f"[general {label}] wall {wall:.3f} s, mean iterations "
         f"{res.iterations.float().mean().item():.1f}, solved "
         f"{int((res.status == 1).sum())}/{len(probs)}; K2 launches "
@@ -1031,8 +1059,6 @@ def phase_general(dev, probs, s32, k_np, x_cert, ok_cert):
             f"{label}: {row['referee_disagreements']} referee disagreements")
     launches["chol_global"] = lc.get("chol_global", 0)
     launches["chol_solve_global"] = lc.get("chol_solve_global", 0)
-    # the row's polish runs on the host: no identity solve on the card
-    launches["chol_solve_global_cols"] = lc.get("chol_solve_global_cols", 0)
     wide = sweep.row_problems("randomQP", WIDE_N, batch=WIDE_B)
     res, _, lc = general_solve(dev, wide, Settings(),
                                f"randomQP n={WIDE_N} Settings()")
@@ -1285,6 +1311,419 @@ def phase_wide(dev):
                      for name, ms in per_launch.items())
         + f" = {k2_s:.2f} s")
     launches = {name: lw.get(name, 0) for name in numbers}
+    return numbers, launches
+
+
+def counted(fn):
+    """(fn(), wall seconds, K2 launches by kernel) with the K2 counters
+    zeroed just before and read just after."""
+    import torch
+
+    from qpalm_tpu_torch.linalg import chol
+
+    torch.cuda.synchronize()
+    chol.KERNEL_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(chol.KERNEL_LAUNCHES)
+
+
+def spd(rng, nb, n, dtype, dev):
+    """A batch of random SPD matrices G G' + n I on the card."""
+    import numpy as np
+    import torch
+
+    G = rng.standard_normal((nb, n, n)).astype(dtype)
+    return torch.from_numpy(G @ np.transpose(G, (0, 2, 1))
+                            + n * np.eye(n, dtype=G.dtype)).to(dev)
+
+
+def k2_rows(dev, rng, nb, n, dt, names, identity=False):
+    """K2 at the shape (nb, n) a phase-16 run gives it: the factor and the
+    one-vector solve (or the identity's n columns) held bit for bit to the
+    twins and timed (k2_against_twins); returns {kernels-line name: row}
+    for the names that are not None, and checks that the plans are the
+    kernels those names count."""
+    import numpy as np
+    import torch
+
+    from qpalm_tpu_torch.linalg import chol
+
+    dtype = getattr(torch, dt)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    M = spd(rng, nb, n, dt, dev)
+    k = n if identity else 1
+    b = torch.eye(n, dtype=dtype, device=dev).expand(nb, n, n).contiguous() \
+        if identity else torch.from_numpy(
+            rng.standard_normal((nb, n)).astype(dt)).to(dev)
+    gp = chol.global_plan(nb, n, dtype, sms) \
+        if chol.factor_plan(n, dtype) != "smem" else None
+    fplan = "wide" if isinstance(gp, chol.GridPlan) else \
+        chol.factor_plan(n, dtype)
+    splan = chol.solve_plan(nb, n, k, dtype, sms)[0]
+    want = (chol.KERNELS["factor", fplan, dtype], chol.solve_kernel(splan, k,
+                                                                    dtype))
+    label = f"{dt} ({nb}, {n}){' identity' if identity else ''}"
+    for name, have in zip(names, want):
+        require(name is None or name == have,
+                f"K2 {label}: plan {have}, not {name}")
+    return {name: row for name, row in zip(
+        names, k2_against_twins(chol, M, b, f"front end {label}"))
+        if name is not None}
+
+
+def k2_share(launches, rows):
+    """Seconds of K2 in a run: its launches by kernel times each kernel's
+    time at the run's shape."""
+    return sum(launches.get(name, 0) * row["ms"]
+               for name, row in rows.items()) / 1e3
+
+
+def fe_quick_start(dev):
+    """Phase 16 (a): README.md's Quick start through the port."""
+    import numpy as np
+
+    from qpalm_tpu_torch import QPALM, Settings, solve
+
+    Q = np.array([[2.0, 0.5], [0.5, 2.0]])
+    A = np.array([[1.0, 1.0]])
+
+    def run():
+        res = solve(Q, A, q=[1.0, 1.0], bmin=[-1.0], bmax=[1.0],
+                    settings=Settings(eps_abs=1e-6, eps_rel=1e-6,
+                                      verbose=False), device=dev)
+        solver = QPALM(Q, A, [1.0, 1.0], [-1.0], [1.0],
+                       settings=Settings(verbose=False), device=dev)
+        r1 = solver.solve()
+        solver.warm_start(r1.solution.x, r1.solution.y)
+        solver.update_bounds([-2.0], [2.0])
+        return res, r1, solver.solve()
+
+    (res, r1, r2), wall, la = counted(run)
+    for r in (res, r1, r2):
+        require(r.info.status == "solved", f"quick start: {r.info.status}")
+    # the box is inactive: x = -Q^-1 q
+    require(np.abs(res.solution.x + 0.4).max() < 1e-5,
+            f"quick start: x {res.solution.x}")
+    say(f"[front end (a) quick start] solve: {res.info.status} x "
+        f"{res.solution.x}, {res.info.iter} iterations; QPALM "
+        f"{r1.info.iter} iterations cold, {r2.info.iter} warm after "
+        f"update_bounds; wall {wall:.3f} s; K2 launches {la}")
+
+
+def fe_random_qp(dev, rows):
+    """Phase 16 (b): one randomQP at f64 Settings() through QPALM, SCHUR
+    and KKT, bit-identical to solve_batch at B = 1, a warm-started
+    re-solve after update_bounds, and a time limit that cuts."""
+    import numpy as np
+
+    from qpalm_tpu_torch import QPALM, Settings
+    from qpalm_tpu_torch import constants as C
+    from qpalm_tpu_torch import referee
+    from qpalm_tpu_torch.batch import solve_batch
+    from qpalm_tpu_torch.workloads import random_qp
+
+    n, m = FE_QP
+    p = random_qp(n, m, density=0.15, seed=0)
+    s = Settings(verbose=False)
+
+    def viol(res, bl, bu):
+        return referee.check(p[0][None], p[1][None], p[2][None], bl[None],
+                             bu[None], np.zeros(1), res.solution.x[None],
+                             res.solution.y[None], s.eps_abs,
+                             s.eps_rel)[0][0]
+
+    out = {}
+    for label, method in (("SCHUR", C.FACTORIZE_SCHUR),
+                          ("KKT", C.FACTORIZE_KKT)):
+        sm = s.replace(factorization_method=method)
+        solver, setup_s, _ = counted(lambda: QPALM(*p, settings=sm,
+                                                   device=dev))
+        res, wall, la = counted(solver.solve)
+        v = viol(res, p[3], p[4])
+        say(f"[front end (b) randomQP n={n} m={m} {label}] "
+            f"{res.info.status}, {res.info.iter} iterations, referee "
+            f"violation {v:.3e} at eps {s.eps_abs:.0e}; setup {setup_s:.3f} "
+            f"s, solve {wall:.3f} s, K2 {k2_share(la, rows):.3f} s of it; "
+            f"K2 launches {la}")
+        require(res.info.status == "solved", f"randomQP {label}: "
+                f"{res.info.status}")
+        require(v <= 1.0, f"randomQP {label}: referee violation {v:.3e}")
+        for name in rows:
+            require(la.get(name, 0) > 0, f"randomQP {label}: {name} not "
+                    f"launched: {la}")
+        out[label] = (solver, res, wall, la)
+
+    solver, cold, wall, la = out["SCHUR"]
+    bres, bwall, _ = counted(lambda: solve_batch([p], s, device=dev))
+    xb = bres.x[0, :n].cpu().numpy()
+    differ = int((xb != cold.solution.x).sum())
+    require(differ == 0 and int(bres.iterations[0]) == cold.info.iter,
+            f"randomQP: QPALM vs solve_batch: {differ} entries of x "
+            f"differ, iterations {cold.info.iter} and "
+            f"{int(bres.iterations[0])}")
+    say(f"[front end (b)] QPALM SCHUR bit-identical to solve_batch([p]) "
+        f"(x, {cold.info.iter} iterations; solve_batch {bwall:.3f} s)")
+
+    bl, bu = 1.1 * p[3], 1.1 * p[4]
+    solver.update_bounds(bl, bu)
+    solver.warm_start(cold.solution.x, cold.solution.y)
+    warm, wwall, _ = counted(solver.solve)
+    v = viol(warm, bl, bu)
+    say(f"[front end (b)] bounds x 1.1, warm start: {warm.info.status}, "
+        f"{warm.info.iter} iterations (cold {cold.info.iter}), referee "
+        f"violation {v:.3e}, {wwall:.3f} s")
+    require(warm.info.status == "solved" and v <= 1.0
+            and warm.info.iter < cold.info.iter,
+            f"randomQP warm re-solve: {warm.info.status}, {warm.info.iter} "
+            f"iterations, violation {v:.3e}")
+
+    st = s.replace(eps_abs=1e-14, eps_rel=0.0, time_limit=1e-3)
+    cut, cwall, _ = counted(lambda: QPALM(*p, settings=st,
+                                          device=dev).solve())
+    say(f"[front end (b)] time_limit 1e-3 s at eps 1e-14: "
+        f"{cut.info.status} after {cut.info.iter} iterations, {cwall:.3f} s")
+    require(cut.info.status_val == C.QPALM_TIME_LIMIT_REACHED,
+            f"randomQP time limit: {cut.info.status}")
+    return out["SCHUR"][3]
+
+
+def fe_mpc(dev, rows):
+    """Phase 16 (c): SequentialMPC(6, 20), one cold step then FE_MPC_STEPS
+    warm-started steps, every step refereed at its own bounds."""
+    import numpy as np
+
+    from qpalm_tpu_torch import referee
+    from qpalm_tpu_torch.workloads import SequentialMPC, mpc_chain
+
+    mpc = SequentialMPC(*FE_MPC, seed=0, device=dev)
+    Hn, An, qn = mpc_chain(*FE_MPC, seed=0)[:3]
+    steps = []
+
+    def step():
+        bl, bu = mpc.bmin.copy(), mpc.bmax.copy()
+        status, it, _ = mpc.step()
+        sol = mpc.solver.solution
+        steps.append((status, it, bl, bu, sol.x, sol.y,
+                      float(np.abs(mpc.x).max())))
+
+    _, cold_s, la_cold = counted(step)
+    _, wall, la = counted(lambda: [step() for _ in range(FE_MPC_STEPS)])
+    iters = np.array([st[1] for st in steps[1:]])
+    viols = np.array([referee.check(
+        Hn[None], An[None], qn[None], bl[None], bu[None], np.zeros(1),
+        x[None], y[None], 1e-6, 1e-6)[0][0]
+        for _, _, bl, bu, x, y, _ in steps])
+    xmax = max(st[6] for st in steps)
+    rate = FE_MPC_STEPS / wall
+    say(f"[front end (c) SequentialMPC{FE_MPC}] n={Hn.shape[0]} "
+        f"m={An.shape[0]}: cold step {cold_s:.3f} s ({steps[0][1]} "
+        f"iterations), {FE_MPC_STEPS} warm steps {wall:.3f} s = {rate:.1f} "
+        f"solves/s, iterations p50 {np.median(iters):.0f} max "
+        f"{iters.max()}, K2 {k2_share(la, rows):.3f} s of the warm steps; "
+        f"referee worst violation {viols.max():.3e} at 1e-6; max |x| "
+        f"{xmax:.3f}; K2 launches (warm) {la}")
+    require(all(st[0] == "solved" for st in steps),
+            f"MPC statuses {[st[0] for st in steps]}")
+    require(bool((viols <= 1.0).all()), f"MPC referee violations {viols}")
+    require(xmax < 4.0, f"MPC max |x| {xmax}")
+    for name in rows:
+        require(la.get(name, 0) > 0, f"MPC: {name} not launched: {la}")
+    return la
+
+
+def fe_large(dev, rows, rows_cols):
+    """Phase 16 (d): large.solve_large_dense at randomQP n=2048 (host
+    polish) and n=512 (device polish), every lane certified and refereed."""
+    import numpy as np
+
+    from qpalm_tpu_torch import referee
+    from qpalm_tpu_torch.batch import stack_problems
+    from qpalm_tpu_torch.large import solve_large_dense
+    from qpalm_tpu_torch.types import QPData
+    from qpalm_tpu_torch.workloads import random_qp
+
+    out = {}
+    for (n, m), polish_on_card, want in ((FE_LARGE, False, rows),
+                                         (FE_LARGE_POLISH, True, rows_cols)):
+        probs = [random_qp(n, m, density=0.15, seed=s)
+                 for s in range(FE_LARGE_B)]
+        r, wall, la = counted(lambda: solve_large_dense(
+            probs, eps=EPS_TARGET, device_polish=polish_on_card,
+            device=dev))
+        d64 = QPData(*(a.numpy() for a in stack_problems(probs,
+                                                         np.float64)))
+        v = referee.check(*d64, r.x, r.y, EPS_TARGET, EPS_TARGET)[0]
+        label = (f"n={n} m={m} x{FE_LARGE_B}, "
+                 f"{'device' if polish_on_card else 'host'} polish")
+        say(f"[front end (d) solve_large_dense {label}] ok {r.ok.tolist()}, "
+            f"f32 statuses {r.status.tolist()} iterations "
+            f"{r.iterations.tolist()}, referee worst violation "
+            f"{v.max():.3e}; t_device_s {r.t_device_s:.3f}, t_polish_s "
+            f"{r.t_polish_s:.3f}, wall {wall:.3f} s; "
+            f"{' + '.join(want)} {k2_share(la, want):.3f} s of it; K2 "
+            f"launches {la}")
+        require(bool(r.ok.all()), f"large {label}: ok {r.ok}")
+        require(bool((v <= 1.0).all()), f"large {label}: referee {v}")
+        for name in want:
+            require(la.get(name, 0) > 0, f"large {label}: {name} not "
+                    f"launched: {la}")
+        out[polish_on_card] = la
+    return out[False], out[True]
+
+
+def fe_diff(dev):
+    """Phase 16 (e): solve_diff on the card against the CPU, central
+    differences, and a batch of 4 against single calls."""
+    import numpy as np
+    import torch
+
+    from qpalm_tpu_torch import Settings
+    from qpalm_tpu_torch.diff import _solve_primal, active_rows, solve_diff
+
+    n, m = FE_DIFF
+    s = Settings(eps_abs=1e-10, eps_rel=1e-10, scaling=0, verbose=False)
+
+    def problem(seed):
+        rng = np.random.default_rng(seed)
+        M = rng.standard_normal((n, n))
+        A = rng.standard_normal((m, n)) / np.sqrt(n)
+        u = 1.0 + rng.random(m)
+        return (M @ M.T / n + np.eye(n), A, rng.standard_normal(n), -u, u)
+
+    probs = [problem(160 + i) for i in range(4)]
+    w = np.random.default_rng(161).standard_normal(n)
+
+    def grads(p, device):
+        t = [torch.tensor(a, device=device, requires_grad=True) for a in p]
+        x = solve_diff(*t, s)
+        wt = torch.as_tensor(w, device=device)
+        loss = (wt * x).sum() + 0.5 * (x * x).sum()
+        if device == "cpu":
+            loss.backward()
+            la = {}
+        else:
+            _, _, la = counted(loss.backward)
+        return [a.grad.cpu().numpy() for a in t], x.detach(), la
+
+    def loss_at(p):
+        t = [torch.tensor(a, device=dev) for a in p]
+        x = solve_diff(*t, s)
+        return float((torch.as_tensor(w, device=dev) * x).sum()
+                     + 0.5 * (x * x).sum())
+
+    p = probs[0]
+    (g, x, la), wall, _ = counted(lambda: grads(p, dev))
+    g_cpu, _, _ = grads(p, "cpu")
+    xb, yb = _solve_primal(*(torch.tensor(a)[None] for a in p), s)
+    act, up = active_rows(torch.tensor(p[1])[None], torch.tensor(p[3])[None],
+                          torch.tensor(p[4])[None], xb, yb, s.eps_abs)
+    act = act[0].numpy()
+    Bm = p[1] * np.sqrt(np.where(act, 1e10, 0.0))[:, None]
+    kappa = np.linalg.cond(p[0] + Bm.T @ Bm + 1e-12 * np.eye(n))
+    # the backward system's conditioning bounds how closely two summation
+    # orders can agree: on the CPU the port's and the JAX package's
+    # gradients, whose K and solves differ in order only, lie 0.45 kappa
+    # eps apart at tests/test_torch_diff.py's seed 0; the card sums the
+    # forward and the backward passes in other orders (cuBLAS) than the CPU
+    bar = max(1e-6, 4 * kappa * np.finfo(np.float64).eps)
+    rel = [float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+           for a, b in zip(g, g_cpu)]
+    say(f"[front end (e) solve_diff n={n} m={m} f64] {int(act.sum())} active "
+        f"rows, kappa(K) {kappa:.3e}; card vs CPU gradients of (Q, A, q, "
+        f"bmin, bmax) relative {['%.2e' % r for r in rel]} (bar "
+        f"{bar:.2e}); forward + backward {wall:.3f} s; K2 launches in the "
+        f"backward pass {la}")
+    require(all(r <= bar for r in rel), f"solve_diff card vs CPU: {rel}")
+    require(sum(la.values()) > 0 and all(v > 0 for v in la.values()),
+            f"solve_diff backward: K2 launches {la}")
+
+    # central differences of 5 coordinates of q and of bmax (the upper
+    # rows active at the solution first, where the gradient is not zero)
+    h = 1e-5
+    upper = act & up[0].numpy()
+    rows = np.concatenate([np.flatnonzero(upper), np.flatnonzero(~upper)])
+    worst = 0.0
+    for arg, idx in ((2, np.arange(5)), (4, rows[:5])):
+        for i in idx:
+            pp, pm = [list(p), list(p)]
+            pp[arg], pm[arg] = p[arg].copy(), p[arg].copy()
+            pp[arg][i] += h
+            pm[arg][i] -= h
+            num = (loss_at(pp) - loss_at(pm)) / (2 * h)
+            err = abs(num - g[arg][i]) / max(1.0, abs(g[arg][i]))
+            worst = max(worst, err)
+    say(f"[front end (e)] central differences (h {h:.0e}) of 5 q and 5 "
+        f"bmax coordinates ({min(5, int(upper.sum()))} of them active "
+        f"upper rows): worst relative error {worst:.2e}")
+    require(upper.any(), "solve_diff: no active upper rows")
+    require(worst <= 1e-4, f"solve_diff FD: {worst:.3e}")
+
+    stk = [torch.tensor(np.stack([pr[k] for pr in probs]), device=dev)
+           for k in range(5)]
+    stk[2].requires_grad_(True)
+    xs = solve_diff(*stk, s)
+    (torch.as_tensor(w, device=dev) * xs).sum().backward()
+    gb = stk[2].grad.cpu().numpy()
+    worst = 0.0
+    for i, pr in enumerate(probs):
+        t = [torch.tensor(a, device=dev) for a in pr]
+        t[2].requires_grad_(True)
+        (torch.as_tensor(w, device=dev) * solve_diff(*t, s)).sum().backward()
+        gi = t[2].grad.cpu().numpy()
+        worst = max(worst, float(np.abs(gb[i] - gi).max()
+                                 / np.abs(gi).max()))
+    say(f"[front end (e)] a batch of 4 against four single calls: dq "
+        f"relative {worst:.2e}")
+    require(worst <= bar, f"solve_diff batch vs single: {worst:.3e}")
+
+
+def phase_front_end(dev):
+    """Phase 16: the single-problem front end on the card.  Returns
+    (numbers, launches) of the kernels line's phase-16 rows: the MPC's and
+    the randomQP's K2 kernels under names of their own (their counters'
+    rows hold phases 14-15's shapes), the large pipeline's f32 wide
+    kernels and the device polish's identity solve under their counters'
+    names."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    numbers, launches = {}, {}
+    t = [time.perf_counter()]
+    fe_quick_start(dev)
+    t.append(time.perf_counter())
+
+    for part, run, nb, n, names in (
+            ("qpalm", fe_random_qp, 1, FE_QP[0],
+             ("chol_global_wide_f64", "chol_solve_global_wide_f64")),
+            ("mpc", fe_mpc, 1, FE_MPC_NPAD,
+             ("chol_global_f64", "chol_solve_global_f64"))):
+        rows = k2_rows(dev, rng, nb, n, "float64", names)
+        la = run(dev, rows)
+        for name, row in rows.items():
+            numbers[f"{name}_{part}"] = row
+            launches[f"{name}_{part}"] = la.get(name, 0)
+        t.append(time.perf_counter())
+
+    large_rows = k2_rows(dev, rng, FE_LARGE_B, FE_LARGE[0], "float32",
+                         ("chol_global_wide", "chol_solve_global_wide"))
+    cols_rows = k2_rows(dev, rng, FE_LARGE_B, FE_LARGE_POLISH[0], "float32",
+                        (None, "chol_solve_global_cols"), identity=True)
+    la_large, la_polish = fe_large(dev, large_rows, cols_rows)
+    numbers.update(large_rows)
+    numbers.update(cols_rows)
+    for name in large_rows:
+        launches[name] = la_large.get(name, 0)
+    launches["chol_solve_global_cols"] = la_polish.get(
+        "chol_solve_global_cols", 0)
+    t.append(time.perf_counter())
+
+    fe_diff(dev)
+    t.append(time.perf_counter())
+    say("[time] phase 16 " + ", ".join(
+        f"({part}) {b - a:.1f} s" for part, a, b in zip("abcde", t, t[1:]))
+        + f", in all {t[-1] - t[0]:.1f} s")
     return numbers, launches
 
 
@@ -1579,6 +2018,11 @@ def main():
     launches.update(wide_launches)
     say(f"[time] phase 15 {time.perf_counter() - t9:.1f} s")
 
+    # ---- 16. the front end ----
+    fe_numbers, fe_launches = phase_front_end(dev)
+    numbers.update(fe_numbers)
+    launches.update(fe_launches)
+
     csrc = "qpalm_tpu_torch/csrc/"
     table = [
         ("fused_palm", "fused_palm", csrc + "fused_palm.cu",
@@ -1602,6 +2046,10 @@ def main():
           for part in ("", "_solve")),
         ("chol_solve_global_cols", "chol_solve_global_cols",
          csrc + "chol.cu", "qpalm_tpu/linalg/pallas_chol.py:123"),
+        *((f"chol{part}_{plan}", f"chol{part}_{plan}", csrc + "chol.cu",
+           f"qpalm_tpu/linalg/pallas_chol.py:{98 if not part else 123}")
+          for plan in ("global_f64_mpc", "global_wide_f64_qpalm")
+          for part in ("", "_solve")),
         ("probe_scratch", "probe_scratch", csrc + "probe_stream.cu",
          "scripts/probe_mosaic_scratch.py:83"),
         ("probe_assembly", "probe_assembly", csrc + "probe_stream.cu",

@@ -3,7 +3,7 @@ H100.
 
 The port mirrors qpalm_tpu's module paths and names, so each module has a
 counterpart in the JAX package that it is held against in the tests.  It
-imports torch and numpy, never jax and never qpalm_tpu.  Five paths are
+imports torch and numpy, never jax and never qpalm_tpu.  Six paths are
 ported so far.  The certified batched pipeline of bench.py:
 
     batch.stack_problems -> scaling.scale_data -> solver.fused (kernel K1)
@@ -36,35 +36,53 @@ use_fused="never", n_pad past 352), and the f64 escalation:
     shared or global memory, f32 or f64; solver.linesearch)
     -> batch.BatchResult
 
-and the workloads sweep of scripts/bench_workloads.py, whose larger rows
+the workloads sweep of scripts/bench_workloads.py, whose larger rows
 run K1's streaming tier:
 
     sweep.run_row -> stack_problems -> solver.fused (kernel K1, on chip or
     streaming) -> polish.polish_batch_np -> finish_np.palm_finish_np
     -> referee.check
 
+and the single-problem front end (README.md's Quick start) with what
+stands on it: the MPC chain, the large dense pipeline and the
+differentiable solve, all on kernel K2:
+
+    api.solve / QPALM.solve -> validate -> batch.pad_problem
+    -> scaling.scale_data -> [nonconvex] LOBPCG pin -> core.init_state
+    -> core.solve_from_state (SCHUR or KKT) -> core.finalize -> SolveResult
+    workloads.SequentialMPC.step -> QPALM.warm_start / solve / update_bounds
+    large.solve_large_dense -> batch.solve_batch (f32) -> polish_batch_np
+    | polish_device.polish_batch -> finish_np
+    diff.solve_diff -> core (forward) ; backward: K2 factor and solve
+
+compat.Qpalm is the reference binding's shim over QPALM; checkpoint
+saves and loads solutions and batches.
+
 Every Pallas kernel of the repository is a CUDA C++ kernel here (csrc/),
 built by nvcc at first use (_build.py); probe.py holds the streaming
 tier's memory-plan probes.  A CPU tensor runs each kernel's plain PyTorch
 twin instead; a CUDA tensor runs the kernel or raises.  What is not ported
-(the KKT, CG and STAGE factorization methods) raises NotImplementedError
-naming its ROADMAP.md item.
+(the CG and STAGE factorization methods, the sparse branch of QPALM and
+solve's route to the host sparse-direct solvers) raises
+NotImplementedError naming its ROADMAP.md item.
 
 The host-side modules of the JAX package (its f64 polish, finisher,
-generators and C baseline binding) cannot be imported without JAX
-(qpalm_tpu/__init__.py imports it), so the port keeps its own copies of
-them (polish.py, finish_np.py, workloads.py, baseline_c.py), held against
-the originals in the tests.
+generators, validation and C baseline binding) cannot be imported without
+JAX (qpalm_tpu/__init__.py imports it), so the port keeps its own copies
+of them (polish.py, finish_np.py, workloads.py, validate.py,
+baseline_c.py), held against the originals in the tests.
 
     minimize   0.5 x' Q x + q' x + c
     subject to bmin <= A x <= bmax
 """
 
 from . import constants
-from .types import QPData, ScalingInfo, Settings, qpdata_from_numpy, \
-    settings_from
+from .api import QPALM, solve
+from .types import Info, QPData, ScalingInfo, Settings, Solution, \
+    SolveResult, qpdata_from_numpy, settings_from
 
 __version__ = "0.1.0"
 
-__all__ = ["constants", "QPData", "ScalingInfo", "Settings",
-           "qpdata_from_numpy", "settings_from"]
+__all__ = ["constants", "QPALM", "solve", "Info", "Solution", "SolveResult",
+           "QPData", "ScalingInfo", "Settings", "qpdata_from_numpy",
+           "settings_from"]

@@ -174,6 +174,16 @@ def _not_fused(settings: Settings, n_pad: int,
     return None
 
 
+def check_device(device) -> torch.device:
+    """`device` as a torch.device; the port runs on CPU and CUDA tensors
+    only."""
+    device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"device {device}: the port runs on CPU "
+                                  "and CUDA tensors only")
+    return device
+
+
 def _fused_eligible(settings: Settings, n_pad: int, m_pad: int) -> bool:
     """Route a batch through kernel K1 (its plain twin for CPU tensors)?
     `Settings.use_fused` "never" refuses, "always" raises ValueError on a
@@ -219,9 +229,7 @@ def solve_batch(
         settings = Settings(**settings_kw)
     elif settings_kw:
         settings = settings.replace(**settings_kw)
-    if torch.device(device).type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"device {device}: the port runs on CPU "
-                                  "and CUDA tensors only")
+    check_device(device)
     dtype = np.dtype(settings.dtype)
     data = stack_problems(problems, dtype, pad_multiple, device=device)
     B, n_pad = data.q.shape

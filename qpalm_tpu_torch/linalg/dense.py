@@ -1,9 +1,9 @@
 """Dense helpers (counterpart of qpalm_tpu/linalg/dense.py:29-53): the
 norms that LOBPCG (solver/nonconvex.py) and the general loop
 (solver/core.py) take, the three-way clamp and the Gershgorin bound.
-Each reduces over the last axes, so a batch (B, n) gives B values.  The
-KKT elimination and refinement of that module wait for ROADMAP.md
-section 1 item 6.
+Each reduces over the last axes, so a batch (B, n) gives B values.
+`newton_solve_kkt` is the FACTORIZE_KKT Newton step (dense.py:188-225):
+the quasi-definite (2,2) block eliminated, then kernel K2 on the rest.
 """
 
 from __future__ import annotations
@@ -36,3 +36,30 @@ def gershgorin_max(M: torch.Tensor) -> torch.Tensor:
     diag = torch.diagonal(M, dim1=-2, dim2=-1)
     radius = M.abs().sum(-1) - diag.abs()
     return (diag + radius).amax(-1)
+
+
+def newton_solve_kkt(Q: torch.Tensor, A: torch.Tensor, sigma: torch.Tensor,
+                     active: torch.Tensor, gamma: torch.Tensor,
+                     neg_dphi: torch.Tensor, proximal: bool) -> torch.Tensor:
+    """The primal part d of the quasi-definite KKT system of each problem
+
+        [ Q + I/gamma   Aact'     ] [d]   [-dphi]
+        [ Aact         -Sact^-1   ] [v] = [  0  ]
+
+    with inactive rows replaced by a unit diagonal (the reference's
+    fixed-sparsity trick, solver_interface.c:145-174), by elimination of
+    the diagonal (2,2) block: S = Q + I/gamma + Aact' diag(sigma) Aact,
+    factored by K2a and solved by K2b.  Batched: Q (B, n, n), A (B, m, n),
+    sigma and active (B, m), gamma (B,), neg_dphi (B, n)."""
+    from .chol import cholesky_solve, cholesky_upper
+
+    n = Q.shape[-1]
+    Am = A * active.to(Q.dtype)[:, :, None]
+    # the (2,2) block is -D, D = 1/sigma on active rows and 1 on inactive
+    d_inv = torch.where(active, sigma, torch.ones_like(sigma))
+    P = Q
+    if proximal:
+        eye = torch.eye(n, dtype=Q.dtype, device=Q.device)
+        P = Q + (1.0 / gamma)[:, None, None] * eye
+    S = P + torch.bmm(Am.transpose(1, 2) * d_inv[:, None, :], Am)
+    return cholesky_solve(cholesky_upper(S), neg_dphi)

@@ -14,13 +14,15 @@ keeps a stopped lane's.  So the host reads the `done` flags only every
 `SYNC_STRIDE` iterations; the iterations past the last problem's end
 change nothing.
 
-Only the SCHUR path of the Newton step is ported: M = Q + A' diag(sigma
-active) A + I/gamma is assembled with `torch.bmm` at full float32
+The SCHUR path of the Newton step: M = Q + A' diag(sigma active) A +
+I/gamma is assembled with `torch.bmm` at full float32
 (`precision.full_f32_matmul`), factored by kernel K2a and solved by K2b
 (linalg/chol.py: on the card the CUDA kernels, on the CPU their twins).
 M is factored for every problem and then selected by the per-problem
-`reuse` flag, as the vmapped reference does.  FACTORIZE_KKT, CG and STAGE
-raise NotImplementedError.
+`reuse` flag, as the vmapped reference does.  FACTORIZE_KKT eliminates
+the quasi-definite block (`linalg.dense.newton_solve_kkt`, K2 on the
+result) on every iteration, without refinement, as the reference does.
+CG and STAGE raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 
 from .. import constants as C
 from ..linalg.chol import cholesky_solve, cholesky_upper
-from ..linalg.dense import gershgorin_max, norm_inf, vec_mid
+from ..linalg.dense import gershgorin_max, newton_solve_kkt, norm_inf, \
+    vec_mid
 from ..precision import full_f32_matmul
 from ..scaling import identity_scaling, scale_data
 from ..types import QPData, ScalingInfo, Settings, SolverState
@@ -73,13 +76,14 @@ def _select_state(mask, a: SolverState, b: SolverState) -> SolverState:
 
 def _check_method(settings: Settings) -> None:
     if settings.factorization_method not in (C.FACTORIZE_SCHUR,
-                                             C.FACTORIZE_KKT_OR_SCHUR):
-        items = {C.FACTORIZE_KKT: "item 6 (the KKT block elimination)",
-                 C.FACTORIZE_CG: "item 6 (linalg/cg.py)",
+                                             C.FACTORIZE_KKT_OR_SCHUR,
+                                             C.FACTORIZE_KKT):
+        items = {C.FACTORIZE_CG: "item 6 (linalg/cg.py)",
                  C.FACTORIZE_STAGE: "item 9 (parallel/block_tridiag.py)"}
         raise NotImplementedError(
             f"factorization_method {settings.factorization_method}: the "
-            "general loop runs the SCHUR path only; ROADMAP.md section 1 "
+            "general loop runs the SCHUR and KKT paths only; ROADMAP.md "
+            "section 1 "
             + items.get(settings.factorization_method, "items 6 and 9"))
 
 
@@ -258,12 +262,17 @@ def update_gamma(st: SolverState, settings: Settings) -> SolverState:
                        factor_valid=st.factor_valid & ~upd)
 
 
-def _boost_gamma_values(st: SolverState, active2):
-    """gamma after a boost (iteration.c:158-205, Schur path), from the
-    Gershgorin bound cached at the last factorization."""
+def _boost_gamma_values(st: SolverState, active2, settings: Settings):
+    """gamma after a boost (iteration.c:158-205): on the Schur path from
+    the Gershgorin bound cached at the last factorization, on the KKT path
+    a flat 1e10 (the reference disables its estimate there,
+    iteration.c:174-182)."""
     nb_active = active2.sum(-1)
-    boosted = torch.maximum(st.gamma_max,
-                            1e14 / torch.clamp(st.gersh, min=1e-30))
+    if settings.factorization_method == C.FACTORIZE_KKT:
+        boosted = torch.full_like(st.gamma, 1e10)
+    else:
+        boosted = torch.maximum(st.gamma_max,
+                                1e14 / torch.clamp(st.gersh, min=1e-30))
     return torch.where(nb_active > 0, boosted,
                        torch.full_like(boosted, 1e12))
 
@@ -377,7 +386,7 @@ def is_dual_infeasible(st: SolverState, data: QPData, scal: ScalingInfo,
 
 
 # ---------------------------------------------------------------------------
-# Newton step + primal update (core.py:418-631), the SCHUR path
+# Newton step + primal update (core.py:418-631), the SCHUR and KKT paths
 # ---------------------------------------------------------------------------
 
 def _newton_and_linesearch(st: SolverState, data: QPData,
@@ -392,6 +401,15 @@ def _newton_and_linesearch(st: SolverState, data: QPData,
     nb_leave = (~active & st.active_old).sum(-1, dtype=_I32)
     reuse = st.factor_valid & (nb_enter == 0) & (nb_leave == 0)
     neg_dphi = -st.dphi
+
+    if settings.factorization_method == C.FACTORIZE_KKT:
+        # refactored every iteration, never refined (core.py:520-525)
+        d = newton_solve_kkt(Q, A, st.sigma, active, st.gamma, neg_dphi,
+                             settings.proximal)
+        st = st._replace(d=d, active=active, active_old=active,
+                         nb_enter=nb_enter, nb_leave=nb_leave,
+                         factor_valid=torch.ones_like(st.factor_valid))
+        return _linesearch_step(st, data, settings)
 
     # factor M = Q + A' diag(sigma active) A + I/gamma for every problem
     w = torch.where(active, st.sqrt_sigma, torch.zeros_like(st.sqrt_sigma))
@@ -440,8 +458,14 @@ def _newton_and_linesearch(st: SolverState, data: QPData,
     st = st._replace(d=d, L=L, gersh=gersh, active=active, active_old=active,
                      nb_enter=nb_enter, nb_leave=nb_leave,
                      factor_valid=torch.ones_like(st.factor_valid))
+    return _linesearch_step(st, data, settings)
 
-    # exact linesearch (linesearch.c:14-120)
+
+def _linesearch_step(st: SolverState, data: QPData,
+                     settings: Settings) -> SolverState:
+    """The exact linesearch along st.d (linesearch.c:14-120) and the
+    primal update."""
+    dtype, d, Q, A = st.x.dtype, st.d, data.Q, data.A
     Qd = _mv(Q, d)
     if settings.proximal:
         Qd = Qd + d / st.gamma[:, None]
@@ -517,7 +541,7 @@ def make_iteration(data: QPData, scal: ScalingInfo, settings: Settings,
             nb_enter2 = (active2 & ~st.active_old).sum(-1, dtype=_I32)
             nb_leave2 = (~active2 & st.active_old).sum(-1, dtype=_I32)
             boost = check & (nb_enter2 == 0) & (nb_leave2 == 0)
-            boosted_gamma = _boost_gamma_values(st, active2)
+            boosted_gamma = _boost_gamma_values(st, active2, settings)
             stepped_gamma = _stepped_gamma(st, settings)[1]
             st = _apply_gamma_change(
                 st, torch.where(boost, boosted_gamma, stepped_gamma))

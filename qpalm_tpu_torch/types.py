@@ -3,13 +3,15 @@
 `Settings` keeps the reference package's fields and defaults, so a settings
 object moves between the two packages field by field (`settings_from`).
 `QPData`, `ScalingInfo` and `SolverState` hold batch-first torch tensors:
-every field has the batch as its leading dimension.
+every field has the batch as its leading dimension.  `Info`, `Solution`
+and `SolveResult` are the results of one solve (api.QPALM), on the host
+but for the final state.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -185,3 +187,45 @@ def solverstate_from_numpy(state, device) -> SolverState:
     return SolverState(*(torch.as_tensor(np.array(getattr(state, f)),
                                          device=device)
                          for f in SolverState._fields))
+
+
+class Info(NamedTuple):
+    """Result info of one solve (reference: include/types.h:76-95
+    QPALMInfo), host numbers read off the device in one copy."""
+
+    iter: int
+    iter_out: int
+    status_val: int
+    pri_res_norm: float
+    dua_res_norm: float
+    dua2_res_norm: float
+    objective: float
+    dual_objective: float
+    setup_time: float = 0.0
+    solve_time: float = 0.0
+    run_time: float = 0.0
+
+    @property
+    def status(self) -> str:
+        try:
+            return C.STATUS_STRINGS[int(self.status_val)]
+        except (TypeError, KeyError):
+            return "unknown"
+
+
+class Solution(NamedTuple):
+    """Unscaled solution (reference: include/types.h QPALMSolution), host
+    float64 numpy arrays."""
+
+    x: np.ndarray
+    y: np.ndarray
+
+
+class SolveResult(NamedTuple):
+    solution: Solution
+    info: Info
+    # infeasibility certificates (unscaled), host float64 numpy arrays
+    delta_x: np.ndarray
+    delta_y: np.ndarray
+    # the final internal state (scaled), a batch of one left on the device
+    state: Optional[SolverState] = None

@@ -13,11 +13,15 @@ symmetric indefinite Q, x in [-1, 1]^n and n/4 coupling rows bounded by
 `random_qp`, `lasso` and `portfolio` are the families of the workloads
 sweep (scripts/bench_workloads.py, sweep.py), copied bit for bit from
 qpalm_tpu/workloads.py:24-87.
+
+`mpc_chain` (the oscillating-masses chain MPC, reference chain80w.m) and
+`SequentialMPC`, its closed loop over api.QPALM, are
+qpalm_tpu/workloads.py:90-278.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -114,3 +118,161 @@ def portfolio(n: int, gamma: float = 1.0, seed: int = 0) -> Tuple:
     ub = np.concatenate([[1.0], np.zeros(k), np.full(n, 1e20)])
     q = np.concatenate([-gamma * mu, np.zeros(k)])
     return Q, A, q, lb, ub
+
+
+def _chain_dynamics(n_masses: int, dt: float = 0.1):
+    """Discretized oscillating-masses chain: nx = 2*n_masses states
+    (positions, velocities), nu = n_masses - 1 actuators between masses."""
+    nm = n_masses
+    nx = 2 * nm
+    nu = max(nm - 1, 1)
+    # continuous: pos' = vel, vel' = spring coupling + actuation
+    K = -2.0 * np.eye(nm)
+    for i in range(nm - 1):
+        K[i, i + 1] = 1.0
+        K[i + 1, i] = 1.0
+    Ac = np.zeros((nx, nx))
+    Ac[:nm, nm:] = np.eye(nm)
+    Ac[nm:, :nm] = K
+    Bc = np.zeros((nx, nu))
+    for j in range(nu):
+        Bc[nm + j, j] = 1.0
+        if nm + j + 1 < nx:  # single-mass chain: one direct actuator
+            Bc[nm + j + 1, j] = -1.0
+    # forward-Euler discretization
+    Ad = np.eye(nx) + dt * Ac
+    Bd = dt * Bc
+    return Ad, Bd
+
+
+def mpc_stage_permutation(nx: int, nu: int, N: int) -> np.ndarray:
+    """Permutation taking z = [x_1..x_N | u_0..u_{N-1}] to stage-interleaved
+    order z' = [x_1, u_0, x_2, u_1, ...] — the ordering under which the
+    P-ALM Schur matrix is block-tridiagonal with block size nx+nu
+    (the structure qpalm_tpu.parallel.block_tridiag partitions across
+    devices)."""
+    perm = []
+    for k in range(N):
+        perm.extend(range(k * nx, (k + 1) * nx))
+        perm.extend(range(N * nx + k * nu, N * nx + (k + 1) * nu))
+    return np.asarray(perm)
+
+
+def mpc_chain(n_masses: int = 6, horizon: int = 10, x0=None, seed: int = 0):
+    """Sparse (stage-banded) MPC QP for the oscillating-masses chain.
+
+    Decision vector z = [x_1..x_N, u_0..u_{N-1}], with equality dynamics
+    x_{k+1} = A x_k + B u_k, box constraints on states and inputs, and a
+    quadratic tracking objective.  The banded structure is the KKT-block
+    partitioning target flagged in SURVEY.md §2.4.
+
+    Returns (Q, A, q, bmin, bmax, meta) with meta carrying what the
+    closed loop (SequentialMPC) needs.
+    """
+    rng = np.random.default_rng(seed)
+    Ad, Bd = _chain_dynamics(n_masses)
+    nx, nu = Bd.shape
+    N = horizon
+    if x0 is None:
+        x0 = 0.5 * rng.standard_normal(nx)
+    x0 = np.asarray(x0, float)
+
+    nz = N * nx + N * nu
+    Qw = np.eye(nx)
+    Rw = 0.1 * np.eye(nu)
+    H = np.zeros((nz, nz))
+    for k in range(N):
+        H[k * nx:(k + 1) * nx, k * nx:(k + 1) * nx] = Qw
+        off = N * nx + k * nu
+        H[off:off + nu, off:off + nu] = Rw
+    q = np.zeros(nz)
+
+    # dynamics: x_{k+1} - A x_k - B u_k = (A x0 for k=0, else 0)
+    m_eq = N * nx
+    Aeq = np.zeros((m_eq, nz))
+    beq = np.zeros(m_eq)
+    for k in range(N):
+        rows = slice(k * nx, (k + 1) * nx)
+        Aeq[rows, k * nx:(k + 1) * nx] = np.eye(nx)
+        if k > 0:
+            Aeq[rows, (k - 1) * nx:k * nx] = -Ad
+        off = N * nx + k * nu
+        Aeq[rows, off:off + nu] = -Bd
+    beq[:nx] = Ad @ x0
+
+    # box constraints on all states and inputs
+    Abox = np.eye(nz)
+    x_lim = 4.0 * np.ones(N * nx)
+    u_lim = 0.5 * np.ones(N * nu)
+    lb_box = -np.concatenate([x_lim, u_lim])
+    ub_box = np.concatenate([x_lim, u_lim])
+
+    A = np.vstack([Aeq, Abox])
+    bmin = np.concatenate([beq, lb_box])
+    bmax = np.concatenate([beq, ub_box])
+    meta = {
+        "Ad": Ad, "Bd": Bd, "nx": nx, "nu": nu, "N": N, "x0": x0,
+        "m_eq": m_eq,
+    }
+    return H, A, q, bmin, bmax, meta
+
+
+class SequentialMPC:
+    """The closed-loop MPC: solve, apply u_0, step the plant, shift the
+    initial-state equality, warm start, re-solve — the reference's
+    chain80w/randomMPCsequential protocol (chain80w.m:86-120), through the
+    port's QPALM on `device`.  A step reads the solution and Info off the
+    device (one copy) and uploads the shifted bounds, nothing else."""
+
+    def __init__(self, n_masses=6, horizon=10, seed=0, settings=None,
+                 stage_structured=False, backend="device", device="cuda"):
+        from .api import QPALM
+        from .types import Settings
+
+        if stage_structured:
+            raise NotImplementedError(
+                "stage_structured=True (FACTORIZE_STAGE on the "
+                "stage-interleaved problem) is not ported: ROADMAP.md "
+                "section 1 item 9 (parallel/block_tridiag.py)")
+        if backend == "sparse":
+            raise NotImplementedError(
+                "backend='sparse' (the host sparse-direct lifecycle, "
+                "SparseQPALM) is not ported: ROADMAP.md section 1 item 8 "
+                "(host_sparse.py)")
+        H, A, q, bmin, bmax, meta = mpc_chain(n_masses, horizon, seed=seed)
+        self.meta = meta
+        self.bmin = bmin
+        self.bmax = bmax
+        settings = settings or Settings(
+            eps_abs=1e-6, eps_rel=1e-6, proximal=False, scaling=2,
+            verbose=False,
+        )
+        self.solver = QPALM(H, A, q, bmin, bmax, settings=settings,
+                            device=device)
+        self.x = meta["x0"].copy()
+        self._prev = None
+
+    def step(self):
+        """One closed-loop step. Returns (status, iters, u0)."""
+        meta = self.meta
+        nx, nu, N = meta["nx"], meta["nu"], meta["N"]
+        if self._prev is not None:
+            self.solver.warm_start(self._prev[0], self._prev[1])
+        res = self.solver.solve()
+        z = res.solution.x
+        u0 = z[N * nx: N * nx + nu]
+        # plant update and receding-horizon bound shift
+        self.x = meta["Ad"] @ self.x + meta["Bd"] @ u0
+        self.bmin[:nx] = meta["Ad"] @ self.x
+        self.bmax[:nx] = self.bmin[:nx]
+        self.solver.update_bounds(self.bmin, self.bmax)
+        self._prev = (z, res.solution.y)
+        return res.info.status, res.info.iter, u0
+
+    def run(self, n_steps: int) -> List[int]:
+        iters = []
+        for _ in range(n_steps):
+            status, it, _ = self.step()
+            assert status == "solved", status
+            iters.append(it)
+        return iters

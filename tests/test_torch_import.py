@@ -20,6 +20,9 @@ PORT_MODULES = [
     "qpalm_tpu_torch.sweep", "qpalm_tpu_torch.probe",
     "qpalm_tpu_torch.baseline_c", "qpalm_tpu_torch.bench",
     "qpalm_tpu_torch.solver.core", "qpalm_tpu_torch.solver.linesearch",
+    "qpalm_tpu_torch.api", "qpalm_tpu_torch.validate",
+    "qpalm_tpu_torch.checkpoint", "qpalm_tpu_torch.compat",
+    "qpalm_tpu_torch.large", "qpalm_tpu_torch.diff",
 ]
 
 
