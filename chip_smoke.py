@@ -6,8 +6,10 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each asserting, any failure exiting non-zero:
   1. environment: torch, CUDA, nvcc, the card's name and power limit, the
      host's LAPACK and BLAS (ldconfig);
-  2. build: nvcc compiles the kernels under qpalm_tpu_torch/csrc/, g++ the
-     C baseline (native/qpalm_baseline.cpp, baseline_c.py);
+  2. build: nvcc compiles the kernels under qpalm_tpu_torch/csrc/, g++ at
+     the same time the native libraries of native/ (the C baselines,
+     baseline_c.py; the sparse LDL', linalg/sparse_direct.py; the QPS
+     reader, io/native.py);
   3. kernel K2 (batched Cholesky factor and solve) against its plain twin
      on a (512, 64, 64) SPD batch, the factor and the identity
      right-hand-side solve bit for bit;
@@ -130,7 +132,27 @@ Phases, each asserting, any failure exiting non-zero:
      single calls, K2 launched in the backward pass.  Each run's counters
      are zeroed just before it and read just after; the kernels line's
      rows for the MPC's and the randomQP's K2 kernels carry the suffixes
-     _mpc and _qpalm.
+     _mpc and _qpalm;
+ 17. the large sparse path: (a) K2 at the block-Jacobi shapes, (79, 64,
+     64) f64 and f32 (n = 5000 in blocks of 64), factor and one-vector
+     solve bit for bit against the twins and timed; (b) QPALM(sparse=True)
+     at f64, eps 1e-6, on scripts/bench_sparse.py's CG class (n=5000,
+     m=7000, seed SP_SEED) with Jacobi and with block-Jacobi (twice): each
+     solved, the host f64 referee's stationarity and primal violation
+     within SP_TOL, the two x within 1e-4, the peak of device memory a run
+     adds under SP_MEM_MB, the two block-Jacobi runs' x bit-identical, K2
+     launched by the block-Jacobi run (counters zeroed just before, read
+     just after: the kernels line's rows _bjacobi), the sparse matvec
+     bit-stable and beside torch's CSR product; (c) solve() on the same
+     problem: the route solve_sparse_auto takes, the same as on the CPU,
+     and on the card if it is CG; (d) CVXQP1_M and CONT-100A
+     (benchmarks/qps_mm) through both QPS parsers (equal) and
+     solve_sparse_auto (CVXQP1_M's published objective within 1e-5
+     relative, both refereed), both native libraries loaded; (e)
+     SequentialMPC(6, 20, backend="sparse"), a cold step and 10 warm
+     steps, solved and refereed; (f) solve_batch(FACTORIZE_CG) on phase
+     14's randomQP n=480 problems at f64 Settings(): solved, x within
+     DEFAULT_X_BAR of the SCHUR run.
 
 It prints a JSON line of the kernels' numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}} only when every phase passed.
@@ -233,6 +255,18 @@ WIDE_QP_N = 3640
 # largest row and, with the device polish, at its smallest; solve_diff at
 # (n, m)
 FE_QP = (1024, 1536)
+# phase 17: the large sparse path.  scripts/bench_sparse.py:57-62's CG
+# class at its (n, m): Q = tridiag(-0.5, 2, -0.5), A random of density
+# 5e-4 (random_state=1), its values, q and the bounds 1 + U(0, 1) drawn from
+# default_rng(SP_SEED); cg_block SP_BLOCK (the default), so the
+# block-Jacobi preconditioner hands K2 (ceil(n / 64), 64, 64); the peak of
+# device memory a sparse solve may add (one dense n x n f64 is 200 MB); the
+# sparse MPC's chain and warm steps
+SP_N, SP_M, SP_SEED, SP_BLOCK = 5000, 7000, 17, 64
+SP_MEM_MB = 64
+SP_TOL = 1e-5  # the host referee's bar on stationarity and primal violation
+SP_MPC, SP_MPC_STEPS = (6, 20), 10
+CVXQP1_M_OPT = 1.0875116e6  # tests/test_maros.py:100
 FE_MPC, FE_MPC_STEPS = (6, 20), 25
 FE_LARGE, FE_LARGE_POLISH, FE_LARGE_B = (2048, 3072), (512, 768), 3
 FE_DIFF = (256, 384)
@@ -1727,6 +1761,270 @@ def phase_front_end(dev):
     return numbers, launches
 
 
+def sparse_problem():
+    """Phase 17's problem: scripts/bench_sparse.py:57-62's cg_class(SP_N,
+    SP_M) with q and the bounds of its loop (:69-70), from SP_SEED."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(SP_SEED)
+    n, m = SP_N, SP_M
+    Q = sp.diags([2.0 * np.ones(n), -0.5 * np.ones(n - 1),
+                  -0.5 * np.ones(n - 1)], [0, 1, -1]).tocsc()
+    A = sp.random(m, n, density=5e-4, random_state=1,
+                  data_rvs=rng.standard_normal).tocsc()
+    q = rng.standard_normal(n)
+    u = 1 + rng.random(m)
+    return Q, A, q, -u, u
+
+
+def sparse_referee(prob, x, y, c=0.0):
+    """The host's f64 check of a sparse solution: (stationarity
+    ||Qx + q + A'y||_inf, primal violation ||Ax - clip(Ax)||_inf, the
+    objective)."""
+    import numpy as np
+
+    Q, A, q, bl, bu = prob
+    x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    Ax = A @ x
+    stat = float(np.abs(Q @ x + q + A.T @ y).max())
+    prim = float(np.abs(Ax - np.clip(Ax, bl, bu)).max()) if Ax.size else 0.0
+    return stat, prim, float(0.5 * x @ (Q @ x) + q @ x + c)
+
+
+def sp_qpalm(dev, prob, precond):
+    """QPALM(sparse=True) at f64, eps 1e-6, on the card with `precond`:
+    (result, wall s, K2 launches, CG counts, device bytes the run added at
+    its peak)."""
+    import gc
+
+    import torch
+
+    from qpalm_tpu_torch import QPALM, Settings
+    from qpalm_tpu_torch.linalg.cg import pcg
+
+    s = Settings(eps_abs=1e-6, eps_rel=1e-6, verbose=False,
+                 cg_precond=precond, cg_block=SP_BLOCK)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pcg.calls = pcg.steps = pcg.iterations = 0
+    res, wall, la = counted(lambda: QPALM(*prob, settings=s, sparse=True,
+                                          device=dev).solve())
+    peak = torch.cuda.max_memory_allocated() - base
+    cg = dict(calls=pcg.calls, steps=pcg.steps,
+              iterations=int(pcg.iterations))
+    return res, wall, la, cg, peak
+
+
+def sp_matvec(dev, prob):
+    """The sparse matvec on the card: the port's row reduction twice (bit
+    for bit) beside torch's CSR product (cuSPARSE), its stability between
+    two calls printed, each timed."""
+    import numpy as np
+    import torch
+
+    from qpalm_tpu_torch.linalg.sparse import from_scipy
+
+    A = from_scipy(prob[1], np.float64, dev)
+    v = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        SP_N)).to(dev)
+    y1, y2 = A.mv(v), A.mv(v)
+    csr = A.csr()
+    c1, c2 = csr @ v, csr @ v
+    torch.cuda.synchronize()
+    require(torch.equal(y1, y2), "sparse mv: two calls differ")
+    dmax = (y1 - c1).abs().max().item()
+    require(dmax <= 1e-12 * max(1.0, y1.abs().max().item()),
+            f"sparse mv against torch's CSR product: {dmax:.3e}")
+    say(f"[sparse (b) matvec] A ({SP_M}, {SP_N}), nnz {A.nnz}: the port's "
+        f"row reduction {cuda_ms(lambda: A.mv(v), 50):.4f} ms, bit-stable "
+        f"over two calls; torch's CSR mv {cuda_ms(lambda: csr @ v, 50):.4f}"
+        f" ms, bit-stable over two calls: {torch.equal(c1, c2)}, max "
+        f"|diff| to the port's {dmax:.2e}")
+
+
+def phase_sparse(dev):
+    """Phase 17: the large sparse path on the card.  Returns (numbers,
+    launches) of the kernels line's block-Jacobi rows."""
+    import numpy as np
+    import torch
+
+    from qpalm_tpu_torch import Settings, referee, solve, \
+        solve_sparse_auto, sweep
+    from qpalm_tpu_torch import constants as C
+    from qpalm_tpu_torch.io import native as io_native
+    from qpalm_tpu_torch.io.qps import load_qps_python
+    from qpalm_tpu_torch.linalg import chol, sparse_direct
+    from qpalm_tpu_torch.linalg.cg import pcg
+    from qpalm_tpu_torch.workloads import SequentialMPC, mpc_chain
+
+    t = [time.perf_counter()]
+    rng = np.random.default_rng(17)
+    nb = -(-SP_N // SP_BLOCK)
+    names = ("chol_f64", "chol_solve_warp_f64")
+    # (a) K2 at the block-Jacobi shapes
+    rows = k2_rows(dev, rng, nb, SP_BLOCK, "float64", names)
+    M32 = spd(rng, nb, SP_BLOCK, "float32", dev)
+    b32 = torch.from_numpy(rng.standard_normal((nb, SP_BLOCK)).astype(
+        np.float32)).to(dev)
+    k2_against_twins(chol, M32, b32, f"block-Jacobi float32 ({nb}, "
+                     f"{SP_BLOCK})")
+    t.append(time.perf_counter())
+
+    # (b) QPALM(sparse=True), Jacobi and block-Jacobi (twice)
+    prob = sparse_problem()
+    sp_matvec(dev, prob)
+    runs = {}
+    for label, precond in (("jacobi", "jacobi"),
+                           ("block_jacobi", "block_jacobi"),
+                           ("block_jacobi again", "block_jacobi")):
+        res, wall, la, cg, peak = sp_qpalm(dev, prob, precond)
+        stat, prim, _ = sparse_referee(prob, res.solution.x, res.solution.y)
+        share = k2_share(la, rows)
+        say(f"[sparse (b) QPALM {label}] n={SP_N} m={SP_M}: "
+            f"{res.info.status}, {res.info.iter} iterations ({res.info.iter_out}"
+            f" outer), CG {cg['iterations']} iterations in {cg['calls']} "
+            f"solves ({cg['steps']} steps); wall {wall:.3f} s, K2 "
+            f"{share:.3f} s of it ({100 * share / wall:.1f}%), launches "
+            f"{la}; referee stationarity {stat:.2e}, primal {prim:.2e}; "
+            f"peak device memory +{peak / 2 ** 20:.1f} MB")
+        require(res.info.status == "solved", f"sparse {label}: "
+                f"{res.info.status}")
+        require(stat <= SP_TOL and prim <= SP_TOL,
+                f"sparse {label}: stationarity {stat:.3e}, primal "
+                f"{prim:.3e}")
+        require(peak < SP_MEM_MB * 2 ** 20,
+                f"sparse {label}: {peak / 2 ** 20:.1f} MB of device memory")
+        runs[label] = (res, la)
+    xj = runs["jacobi"][0].solution.x
+    xb = runs["block_jacobi"][0].solution.x
+    dx = float(np.abs(xj - xb).max())
+    say(f"[sparse (b)] |x_jacobi - x_block_jacobi| {dx:.2e}; block-Jacobi "
+        f"reruns bit-identical: "
+        f"{np.array_equal(xb, runs['block_jacobi again'][0].solution.x)}")
+    require(dx <= 1e-4, f"sparse: Jacobi and block-Jacobi x {dx:.3e} apart")
+    require(np.array_equal(xb, runs["block_jacobi again"][0].solution.x),
+            "sparse: two identical block-Jacobi runs differ")
+    la = runs["block_jacobi"][1]
+    for name in names:
+        require(la.get(name, 0) > 0, f"block-Jacobi: {name} not launched: "
+                f"{la}")
+    numbers = {"chol_f64_bjacobi": rows["chol_f64"],
+               "chol_solve_f64_bjacobi": rows["chol_solve_warp_f64"]}
+    launches = {"chol_f64_bjacobi": la.get("chol_f64", 0),
+                "chol_solve_f64_bjacobi": la.get("chol_solve_warp_f64", 0)}
+    t.append(time.perf_counter())
+
+    # (c) solve's route to solve_sparse_auto
+    s6 = Settings(eps_abs=1e-6, eps_rel=1e-6, verbose=False)
+    pcg.calls = 0
+    solve_sparse_auto.route = None
+    r, wall, la = counted(lambda: solve(*prob, settings=s6, device=dev))
+    route, calls = solve_sparse_auto.route, pcg.calls
+    # the route on the CPU: chosen before the solve, so one iteration shows
+    solve_sparse_auto.route = None
+    solve(*prob, settings=s6.replace(max_iter=1), device="cpu")
+    cpu_route = solve_sparse_auto.route
+    stat, prim, _ = sparse_referee(prob, r.solution.x, r.solution.y)
+    say(f"[sparse (c) solve] route {route} (on the CPU {cpu_route}): "
+        f"{r.info.status}, {r.info.iter} iterations, wall {wall:.3f} s, "
+        f"CG solves on the card {calls}; referee stationarity {stat:.2e}, "
+        f"primal {prim:.2e}; |x - x_block_jacobi| "
+        f"{np.abs(r.solution.x - xb).max():.2e}")
+    require(route is not None and route == cpu_route, f"solve: route "
+            f"{route} on the card, {cpu_route} on the CPU")
+    require(r.info.status == "solved" and stat <= SP_TOL and prim <= SP_TOL,
+            f"solve: {r.info.status}, stationarity {stat:.3e}, primal "
+            f"{prim:.3e}")
+    if route == "cg":
+        require(calls > 0 and pcg.iterations.device.type == "cuda",
+                "solve: the CG route did not run on the card")
+    t.append(time.perf_counter())
+
+    # (d) the QPS files through both parsers, then solve_sparse_auto
+    require(sparse_direct.load_library() is not None,
+            "libqpalm_ldl: " + sparse_direct.unavailable_reason())
+    require(io_native.load_library() is not None,
+            "libqpalm_io: " + io_native.unavailable_reason())
+    s7 = Settings(eps_abs=1e-7, eps_rel=1e-7, verbose=False, max_iter=5000)
+    for name in ("CVXQP1_M", "CONT-100A"):
+        path = str(Path(__file__).resolve().parent / "benchmarks" / "qps_mm"
+                   / f"{name}.qps")
+        p = load_qps_python(path)
+        pn = io_native.load_qps_native(path)
+        same = p.name == pn.name and p.c == pn.c and all(
+            np.array_equal(getattr(p, f), getattr(pn, f))
+            for f in ("q", "bmin", "bmax")) and all(
+            (getattr(p, f) != getattr(pn, f)).nnz == 0 for f in ("Q", "A"))
+        require(same, f"{name}: the two parsers differ")
+        (rr, wall, la) = counted(lambda: solve_sparse_auto(
+            p.Q, p.A, p.q, p.bmin, p.bmax, settings=s7, c=p.c, device=dev))
+        pr = (p.Q, p.A, p.q, p.bmin, p.bmax)
+        stat, prim, obj = sparse_referee(pr, rr.x, rr.y, p.c)
+        say(f"[sparse (d) {name}] n={p.n} m={p.m}, parsers equal; route "
+            f"{solve_sparse_auto.route}: {rr.status_str}, {rr.iterations} "
+            f"iterations, objective {rr.objective:.8e} (host {obj:.8e}), "
+            f"wall {wall:.3f} s; referee stationarity {stat:.2e}, primal "
+            f"{prim:.2e}")
+        require(rr.status_str == "solved" and stat <= SP_TOL
+                and prim <= SP_TOL, f"{name}: {rr.status_str}, stationarity "
+                f"{stat:.3e}, primal {prim:.3e}")
+        if name == "CVXQP1_M":
+            require(abs(rr.objective - CVXQP1_M_OPT) <= 1e-5 * CVXQP1_M_OPT,
+                    f"CVXQP1_M objective {rr.objective} against "
+                    f"{CVXQP1_M_OPT}")
+    t.append(time.perf_counter())
+
+    # (e) SequentialMPC through the host sparse lifecycle
+    mpc = SequentialMPC(*SP_MPC, seed=0, backend="sparse", device=dev)
+    Hn, An, qn = mpc_chain(*SP_MPC, seed=0)[:3]
+    steps = []
+    t0 = time.perf_counter()
+    for _ in range(1 + SP_MPC_STEPS):
+        bl, bu = mpc.bmin.copy(), mpc.bmax.copy()
+        status, it, _ = mpc.step()
+        x, y = mpc._prev
+        viol = referee.check(Hn[None], An[None], qn[None], bl[None],
+                             bu[None], np.zeros(1), x[None], y[None], 1e-6,
+                             1e-6)[0][0]
+        steps.append((status, it, viol))
+    wall = time.perf_counter() - t0
+    say(f"[sparse (e) SequentialMPC{SP_MPC} sparse] a cold step "
+        f"({steps[0][1]} iterations) and {SP_MPC_STEPS} warm steps "
+        f"(iterations {[st[1] for st in steps[1:]]}) in {wall:.3f} s; "
+        f"referee worst violation {max(st[2] for st in steps):.3e} at 1e-6")
+    require(all(st[0] == "solved" for st in steps),
+            f"sparse MPC statuses {[st[0] for st in steps]}")
+    require(all(st[2] <= 1.0 for st in steps), "sparse MPC referee")
+    t.append(time.perf_counter())
+
+    # (f) dense batches through CG, against the SCHUR run of phase 14
+    wide = sweep.row_problems("randomQP", WIDE_N, batch=WIDE_B)
+    schur, _, _ = general_solve(dev, wide, Settings(),
+                                f"randomQP n={WIDE_N} Settings() SCHUR")
+    pcg.calls = pcg.steps = pcg.iterations = 0
+    cgr, wall, la = general_solve(
+        dev, wide, Settings(factorization_method=C.FACTORIZE_CG),
+        f"randomQP n={WIDE_N} Settings() CG")
+    dx = (cgr.x - schur.x).abs().max().item()
+    say(f"[sparse (f) solve_batch CG] randomQP n={WIDE_N} B={WIDE_B} f64: "
+        f"solved {int((cgr.status == C.QPALM_SOLVED).sum())}, CG "
+        f"{int(pcg.iterations)} iterations in {pcg.calls} solves "
+        f"({pcg.steps} steps), |x_cg - x_schur| {dx:.2e} (bar "
+        f"{DEFAULT_X_BAR:.0e})")
+    require(bool((cgr.status == C.QPALM_SOLVED).all()),
+            f"solve_batch CG: statuses {cgr.status.tolist()}")
+    require(dx <= DEFAULT_X_BAR, f"solve_batch CG: x {dx:.3e} from SCHUR")
+    t.append(time.perf_counter())
+    say("[time] phase 17 " + ", ".join(
+        f"({part}) {b - a:.1f} s" for part, a, b in zip("abcdef", t, t[1:]))
+        + f", in all {t[-1] - t[0]:.1f} s")
+    return numbers, launches
+
+
 def main():
     import torch
 
@@ -1772,7 +2070,18 @@ def main():
     say(f"[env] ldconfig LAPACK/BLAS: {'; '.join(libs) or 'none'}")
 
     # ---- 2. build ----
+    # g++ builds the three native libraries while nvcc builds the kernels
+    from concurrent.futures import ThreadPoolExecutor
+
+    from qpalm_tpu_torch.io import native as io_native
+    from qpalm_tpu_torch.linalg import sparse_direct
+
     t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(3)
+    native = {name: pool.submit(lambda f=f: (f(), time.perf_counter() - t0))
+              for name, f in (("C baseline", baseline_c.load_library),
+                              ("libqpalm_ldl", sparse_direct.load_library),
+                              ("libqpalm_io", io_native.load_library))}
     lib_path, log = _build.build(verbose=True)
     _build.kernels()
     say(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
@@ -1799,12 +2108,16 @@ def main():
                 say(f"[build] {label}: {regs} registers, {st} bytes spill "
                     f"stores, {ld} bytes spill loads")
 
-    t0 = time.perf_counter()
-    require(baseline_c.load_library() is not None,
-            "the C baseline does not build: "
-            + baseline_c.unavailable_reason())
-    say(f"[build] C baseline in {time.perf_counter() - t0:.1f} s, linking "
-        f"{baseline_c.linked_blas()}")
+    why = {"C baseline": baseline_c.unavailable_reason,
+           "libqpalm_ldl": sparse_direct.unavailable_reason,
+           "libqpalm_io": io_native.unavailable_reason}
+    for name, fut in native.items():
+        lib, secs = fut.result()
+        require(lib is not None, f"{name} does not build: {why[name]()}")
+        say(f"[build] {name} ({Path(lib._name).name}) built and loaded "
+            f"{secs:.1f} s after the start")
+    pool.shutdown()
+    say(f"[build] the C baseline links {baseline_c.linked_blas()}")
 
     numbers = {}
 
@@ -2023,6 +2336,11 @@ def main():
     numbers.update(fe_numbers)
     launches.update(fe_launches)
 
+    # ---- 17. the large sparse path ----
+    sp_numbers, sp_launches = phase_sparse(dev)
+    numbers.update(sp_numbers)
+    launches.update(sp_launches)
+
     csrc = "qpalm_tpu_torch/csrc/"
     table = [
         ("fused_palm", "fused_palm", csrc + "fused_palm.cu",
@@ -2048,7 +2366,8 @@ def main():
          csrc + "chol.cu", "qpalm_tpu/linalg/pallas_chol.py:123"),
         *((f"chol{part}_{plan}", f"chol{part}_{plan}", csrc + "chol.cu",
            f"qpalm_tpu/linalg/pallas_chol.py:{98 if not part else 123}")
-          for plan in ("global_f64_mpc", "global_wide_f64_qpalm")
+          for plan in ("global_f64_mpc", "global_wide_f64_qpalm",
+                       "f64_bjacobi")
           for part in ("", "_solve")),
         ("probe_scratch", "probe_scratch", csrc + "probe_stream.cu",
          "scripts/probe_mosaic_scratch.py:83"),

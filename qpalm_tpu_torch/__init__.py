@@ -56,33 +56,47 @@ differentiable solve, all on kernel K2:
     diff.solve_diff -> core (forward) ; backward: K2 factor and solve
 
 compat.Qpalm is the reference binding's shim over QPALM; checkpoint
-saves and loads solutions and batches.
+saves and loads solutions and batches.  The large sparse path, on the
+device and on the host, with the file drivers that feed it:
+
+    api.QPALM(sparse=True) -> linalg.sparse.from_scipy -> scaling (sparse)
+    -> core.solve_from_state (FACTORIZE_CG: linalg.cg.pcg, Jacobi or
+    block-Jacobi, whose blocks kernel K2 factors and solves)
+    api.solve (large scipy input) -> host_sparse.solve_sparse_auto
+    -> baseline_c.solve_sparse | host_sparse.solve_sparse_direct
+    (linalg.sparse_direct.SparseLDL) | the CG path above on the device
+    io.load_qps (io/qps.py, io/native.py) ; io.cli
 
 Every Pallas kernel of the repository is a CUDA C++ kernel here (csrc/),
 built by nvcc at first use (_build.py); probe.py holds the streaming
 tier's memory-plan probes.  A CPU tensor runs each kernel's plain PyTorch
 twin instead; a CUDA tensor runs the kernel or raises.  What is not ported
-(the CG and STAGE factorization methods, the sparse branch of QPALM and
-solve's route to the host sparse-direct solvers) raises
-NotImplementedError naming its ROADMAP.md item.
+(FACTORIZE_STAGE, the stage-structured MPC and parallel/) raises
+NotImplementedError naming its ROADMAP.md item.  The native libraries
+(the C baseline solvers, the sparse LDL' backend and the QPS reader) are
+built by g++ from native/ at first use (_build.py).
 
 The host-side modules of the JAX package (its f64 polish, finisher,
-generators, validation and C baseline binding) cannot be imported without
-JAX (qpalm_tpu/__init__.py imports it), so the port keeps its own copies
-of them (polish.py, finish_np.py, workloads.py, validate.py,
-baseline_c.py), held against the originals in the tests.
+generators, validation, C baseline binding, host sparse solvers and file
+drivers) cannot be imported without JAX (qpalm_tpu/__init__.py imports
+it), so the port keeps its own copies of them (polish.py, finish_np.py,
+workloads.py, validate.py, baseline_c.py, host_sparse.py,
+linalg/sparse_direct.py, io/), held against the originals in the tests.
 
     minimize   0.5 x' Q x + q' x + c
     subject to bmin <= A x <= bmax
 """
 
-from . import constants
+from . import constants, io
 from .api import QPALM, solve
+from .host_sparse import SparseQPALM, solve_sparse_auto, \
+    solve_sparse_batch, solve_sparse_direct
 from .types import Info, QPData, ScalingInfo, Settings, Solution, \
     SolveResult, qpdata_from_numpy, settings_from
 
 __version__ = "0.1.0"
 
-__all__ = ["constants", "QPALM", "solve", "Info", "Solution", "SolveResult",
-           "QPData", "ScalingInfo", "Settings", "qpdata_from_numpy",
-           "settings_from"]
+__all__ = ["constants", "io", "QPALM", "solve", "SparseQPALM",
+           "solve_sparse_auto", "solve_sparse_batch", "solve_sparse_direct",
+           "Info", "Solution", "SolveResult", "QPData", "ScalingInfo",
+           "Settings", "qpdata_from_numpy", "settings_from"]

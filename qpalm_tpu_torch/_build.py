@@ -11,10 +11,13 @@ Each C entry point launches on the stream it is given, allocates nothing,
 synchronises nothing, and returns cudaGetLastError(); `check_launch` turns
 a nonzero code into an exception.
 
-`build_baseline()` compiles the native C/LAPACK baseline solver,
-native/qpalm_baseline.cpp, with g++ into the same directory (the host side
-of the bench: its divisor and the headline's rescue, baseline_c.py).  It
-links the first BLAS/LAPACK of `blas_routes()` that builds and loads.
+`build_baseline()`, `build_ldl()` and `build_io()` compile the native C++
+libraries of native/ (native/Makefile's sources and flags) with g++ into
+the same directory: the C/LAPACK baseline solvers (the bench's divisor,
+the headline's rescue and `solve_sparse_auto`'s native engine,
+baseline_c.py), the sparse LDL' backend (linalg/sparse_direct.py) and the
+QPS reader (io/native.py).  Each links the first BLAS/LAPACK of
+`blas_routes()` that builds and loads.
 """
 
 from __future__ import annotations
@@ -142,12 +145,22 @@ def check_launch(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-BASELINE_SRC = _PKG.parent / "native" / "qpalm_baseline.cpp"
-# native/Makefile's flags for libqpalm_baseline.so
+NATIVE = _PKG.parent / "native"
+# native/Makefile's sources and flags for each library it builds
+BASELINE_SRCS = ("qpalm_baseline.cpp", "qpalm_sparse_baseline.cpp",
+                 "sparse_ldl.cpp", "amd_order.cpp")
+LDL_SRCS = ("sparse_ldl.cpp", "sparse_ldl_sn.cpp", "amd_order.cpp",
+            "batch_kkt.cpp")
+IO_SRCS = ("qps_reader.cpp",)
 CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-O3",
              "-shared"]
-# the BLAS and LAPACK routines qpalm_baseline.cpp calls
+IO_CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared"]
+# the BLAS and LAPACK routines qpalm_baseline.cpp calls, and those of the
+# sparse LDL' library (sparse_ldl_sn.cpp's panels, batch_kkt.cpp's
+# Bunch-Kaufman)
 BLAS_ROUTINES = ("dgemv_", "dsymv_", "dsyrk_", "dpotrf_", "dpotrs_")
+LDL_ROUTINES = ("dgemm_", "dgemv_", "dtrsv_", "daxpy_", "dsytrf_",
+                "dsytrs_", "ssytrf_", "ssytrs_")
 
 
 def _scipy_openblas() -> Path | None:
@@ -160,40 +173,45 @@ def _scipy_openblas() -> Path | None:
     return found[0] if found else None
 
 
-def blas_routes() -> list[tuple[str, list[str]]]:
+def blas_routes(routines=BLAS_ROUTINES) -> list[tuple[str, list[str]]]:
     """(name, g++ link arguments) of each way to link BLAS and LAPACK, in
-    the order `build_baseline` tries them: the system's liblapack.so.3 and
+    the order the builds try them: the system's liblapack.so.3 and
     libblas.so.3 (native/Makefile's link line), then scipy's bundled
-    OpenBLAS, which exports the routines under a `scipy_` prefix."""
+    OpenBLAS, which exports `routines` under a `scipy_` prefix."""
     routes = [("system liblapack.so.3 + libblas.so.3",
                ["-l:liblapack.so.3", "-l:libblas.so.3"])]
     ob = _scipy_openblas()
     if ob is not None:
         routes.append((f"scipy's bundled OpenBLAS ({ob.name})",
-                       [*(f"-D{r}=scipy_{r}" for r in BLAS_ROUTINES),
+                       [*(f"-D{r}=scipy_{r}" for r in routines),
                         str(ob), f"-Wl,-rpath,{ob.parent}"]))
     return routes
 
 
-def build_baseline() -> tuple[ctypes.CDLL, str]:
-    """Compile native/qpalm_baseline.cpp into a shared library unless the
-    library for this source and route exists, and load it, trying
-    `blas_routes()` in order: a route counts when its library builds and
-    loads (a host may link against a LAPACK that its loader cannot find).
-    Returns (the loaded library, the BLAS route's name); raises
-    RuntimeError with every route's error when none does."""
+def build_native(stem: str, sources, flags, routes) -> tuple[ctypes.CDLL,
+                                                               str]:
+    """Compile native/`sources` with g++ into _build/`stem`_<hash>.so
+    unless the library for these sources, flags and route exists, and load
+    it, trying `routes` ((name, link arguments), see `blas_routes`) in
+    order: a route counts when its library builds and loads (a host may
+    link against a LAPACK that its loader cannot find).  Returns (the
+    loaded library, the route's name); raises RuntimeError with every
+    route's error when none does."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++ or c++) on PATH")
+    paths = [NATIVE / s for s in sources]
     errors = []
-    for name, link in blas_routes():
-        h = hashlib.sha256(BASELINE_SRC.read_bytes())
-        h.update(" ".join(CXX_FLAGS + link).encode())
-        out = BUILD_DIR / f"libqpalm_baseline_{h.hexdigest()[:16]}.so"
+    for name, link in routes:
+        h = hashlib.sha256()
+        for f in paths + sorted(NATIVE.glob("*.h")):
+            h.update(f.read_bytes())
+        h.update(" ".join(flags + link).encode())
+        out = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
         if not out.exists():
             BUILD_DIR.mkdir(exist_ok=True)
             tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
-            cmd = [cxx, *CXX_FLAGS, "-o", str(tmp), str(BASELINE_SRC), *link]
+            cmd = [cxx, *flags, "-o", str(tmp), *map(str, paths), *link]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
@@ -205,5 +223,27 @@ def build_baseline() -> tuple[ctypes.CDLL, str]:
             return ctypes.CDLL(str(out)), name
         except OSError as err:
             errors.append(f"{name}: built, but does not load: {err}")
-    raise RuntimeError("the baseline library does not build and load:\n"
+    raise RuntimeError(f"{stem} does not build and load:\n"
                        + "\n".join(errors))
+
+
+def build_baseline() -> tuple[ctypes.CDLL, str]:
+    """The C/LAPACK baseline solvers, dense and sparse
+    (native/qpalm_baseline.cpp, qpalm_sparse_baseline.cpp): (library,
+    BLAS route)."""
+    return build_native("libqpalm_baseline", BASELINE_SRCS, CXX_FLAGS,
+                        blas_routes())
+
+
+def build_ldl() -> tuple[ctypes.CDLL, str]:
+    """The sparse LDL' library (native/sparse_ldl.cpp, sparse_ldl_sn.cpp,
+    amd_order.cpp, batch_kkt.cpp): (library, BLAS route)."""
+    return build_native("libqpalm_ldl", LDL_SRCS, CXX_FLAGS,
+                        [(name, link + ["-ldl"]) for name, link
+                         in blas_routes(LDL_ROUTINES)])
+
+
+def build_io() -> tuple[ctypes.CDLL, str]:
+    """The native QPS reader (native/qps_reader.cpp): (library, route)."""
+    return build_native("libqpalm_io", IO_SRCS, IO_CXX_FLAGS,
+                        [("no BLAS", [])])

@@ -7,11 +7,18 @@ the reference, and solved by the port's batch-first general loop
 (solver/core.py) as a batch of one on `device`: kernel K2 factors and
 solves the Newton systems on the card, its plain twins on the CPU.
 
+The sparse branch (`sparse=True`, scipy-sparse input from n = 2048, or
+FACTORIZE_CG) keeps Q and A sparse (linalg.sparse.SparseMatrix, no
+padding) and solves the Newton systems matrix-free with preconditioned CG
+(FACTORIZE_CG, Jacobi or block-Jacobi on K2); no n x n matrix is formed.
+`solve` sends large scipy-sparse convex problems to
+`host_sparse.solve_sparse_auto` (the native sparse-direct solvers, or CG
+on `device`), as the reference does.
+
 The host keeps copies of the padded bounds, so an update uploads them
 and reads nothing back; a solve reads its result off the device in
-one copy.  What the port does not have yet raises NotImplementedError
-naming its ROADMAP.md item: the sparse (CG) branch, `solve`'s route to
-the host sparse-direct solvers, and FACTORIZE_STAGE.
+one copy.  FACTORIZE_STAGE raises NotImplementedError naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -20,11 +27,13 @@ import time
 from typing import Optional
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from . import constants as C
 from .batch import _PAD_BOUND, _densify, _round_up, check_device, \
     pad_problem
+from .linalg.sparse import from_scipy
 from .scaling import scale_data
 from .solver import core
 from .solver.nonconvex import lobpcg_min_eig
@@ -41,7 +50,9 @@ class QPALM:
     minimize 0.5 x'Qx + q'x + c   s.t.   bmin <= A x <= bmax
 
     Accepts dense numpy arrays or scipy sparse matrices for Q (n x n,
-    symmetric) and A (m x n); sparse input is densified.
+    symmetric) and A (m x n).  Sparse input is densified unless the sparse
+    branch takes it: `sparse=True`, or None with scipy input from n = 2048
+    or FACTORIZE_CG.
     """
 
     def __init__(self, Q, A, q, bmin, bmax, c=0.0,
@@ -61,31 +72,55 @@ class QPALM:
         if sparse is None:
             sparse = (is_scipy and Q.shape[0] >= 2048) \
                 or settings.factorization_method == C.FACTORIZE_CG
-        if sparse:
-            raise NotImplementedError(
-                "the sparse path (matrix-free FACTORIZE_CG on sparse Q and "
-                "A, qpalm_tpu/api.py:123-167) is not ported: ROADMAP.md "
-                "section 1 item 6 (linalg/cg.py, linalg/sparse.py)")
-        if settings.factorization_method == C.FACTORIZE_STAGE:
+        self.sparse = bool(sparse)
+        if settings.factorization_method == C.FACTORIZE_STAGE \
+                and not self.sparse:
             raise NotImplementedError(
                 "FACTORIZE_STAGE is not ported: ROADMAP.md section 1 item 9 "
                 "(parallel/block_tridiag.py)")
         dtype = np.dtype(settings.dtype)
 
-        Q = _densify(Q)
-        A = _densify(A)
-        self.n, self.m = validate_data(Q, A, q, bmin, bmax)
-        self._n_pad = _round_up(self.n, pad_multiple)
-        self._m_pad = _round_up(max(self.m, 1), pad_multiple)
-        Qp, Ap, qp, bl, bu = pad_problem(Q, A, q, bmin, bmax, self._n_pad,
-                                         self._m_pad, dtype)
-        # clip user infinities to the QPALM convention; the host keeps the
-        # bounds for the updates
-        self._bl = np.maximum(bl, -_PAD_BOUND)
-        self._bu = np.minimum(bu, _PAD_BOUND)
-        self._data = QPData(*(torch.from_numpy(a[None]).to(self.device)
-                              for a in (Qp, Ap, qp, self._bl, self._bu,
-                                        np.asarray(c, dtype))))
+        if self.sparse:
+            # the large-problem path (qpalm_tpu/api.py:124-164): Q and A
+            # stay sparse, no padding, Newton systems by CG
+            if not is_scipy:
+                Q = sp.csc_matrix(np.asarray(Q))
+                A = sp.csc_matrix(np.asarray(A))
+            self.n, self.m = validate_data(Q, A, q, bmin, bmax)
+            if settings.enable_dual_termination:
+                raise ValueError(
+                    "enable_dual_termination requires a factorization of Q "
+                    "and is unsupported on the sparse (CG) path")
+            settings = settings.replace(factorization_method=C.FACTORIZE_CG)
+            self._n_pad, self._m_pad = self.n, max(self.m, 1)
+            bl = np.maximum(np.asarray(bmin, dtype), -_PAD_BOUND)
+            bu = np.minimum(np.asarray(bmax, dtype), _PAD_BOUND)
+            if self.m == 0:
+                A = sp.csc_matrix((1, self.n))
+                bl = np.array([-_PAD_BOUND], dtype)
+                bu = np.array([_PAD_BOUND], dtype)
+            self._bl, self._bu = bl, bu
+            tensor = lambda a: torch.from_numpy(  # noqa: E731
+                np.asarray(a, dtype)[None]).to(self.device)
+            self._data = QPData(
+                Q=from_scipy(Q, dtype, self.device),
+                A=from_scipy(A, dtype, self.device), q=tensor(q),
+                bmin=tensor(bl), bmax=tensor(bu), c=tensor(c))
+        else:
+            Q = _densify(Q)
+            A = _densify(A)
+            self.n, self.m = validate_data(Q, A, q, bmin, bmax)
+            self._n_pad = _round_up(self.n, pad_multiple)
+            self._m_pad = _round_up(max(self.m, 1), pad_multiple)
+            Qp, Ap, qp, bl, bu = pad_problem(Q, A, q, bmin, bmax,
+                                             self._n_pad, self._m_pad, dtype)
+            # clip user infinities to the QPALM convention; the host keeps
+            # the bounds for the updates
+            self._bl = np.maximum(bl, -_PAD_BOUND)
+            self._bu = np.minimum(bu, _PAD_BOUND)
+            self._data = QPData(*(torch.from_numpy(a[None]).to(self.device)
+                                  for a in (Qp, Ap, qp, self._bl, self._bu,
+                                            np.asarray(c, dtype))))
 
         # nonconvex setup: the minimum eigenvalue of the *scaled* Q pins
         # gamma (reference: qpalm_setup -> set_settings_nonconvex,
@@ -97,7 +132,8 @@ class QPALM:
             if self.n <= 3:
                 # LOBPCG's 3-vector subspace degenerates for n <= 3; the
                 # margin keeps Q + I/gamma strictly PD (nonconvex.c:122-124)
-                Qs = sQ[0, :self.n, :self.n].cpu().numpy()
+                Qs = (sQ.to_dense() if self.sparse else sQ[0]) \
+                    [:self.n, :self.n].cpu().numpy()
                 lam = float(np.linalg.eigvalsh(Qs)[0]) - 1e-6
             else:
                 # the start vector spans the padded dims too
@@ -264,9 +300,14 @@ class QPALM:
 def solve(Q, A, q, bmin, bmax, c=0.0, settings: Optional[Settings] = None,
           x0=None, y0=None, device="cuda", **settings_kw) -> SolveResult:
     """One-shot convenience wrapper: setup, (warm start), solve on
-    `device`.  Large scipy-sparse convex problems, which the reference
-    routes to its host sparse-direct solvers (`solve_sparse_auto`,
-    qpalm_tpu/api.py:396-425), raise NotImplementedError."""
+    `device`.
+
+    Large scipy-sparse convex problems (n >= 2048 with no explicit
+    factorization_method) route through `host_sparse.solve_sparse_auto`,
+    which picks the native direct LDL' backends or matrix-free CG (on
+    `device`) by estimated factor cost, as qpalm_tpu/api.py:388-410 does;
+    its result is repackaged as a SolveResult of numpy arrays with no
+    state."""
     if settings is None:
         settings = Settings(**settings_kw)
     elif settings_kw:
@@ -276,10 +317,29 @@ def solve(Q, A, q, bmin, bmax, c=0.0, settings: Optional[Settings] = None,
             and not settings.enable_dual_termination
             and settings.factorization_method == C.FACTORIZE_KKT_OR_SCHUR
             and settings.time_limit >= C.QPALM_INFTY):
-        raise NotImplementedError(
-            "large scipy-sparse problems route to the host sparse-direct "
-            "solvers (solve_sparse_auto), which are not ported: ROADMAP.md "
-            "section 1 item 8 (host_sparse.py, linalg/sparse_direct.py)")
+        from .host_sparse import solve_sparse_auto
+
+        t0 = time.perf_counter()
+        r = solve_sparse_auto(Q, A, q, bmin, bmax, settings, c=c, x0=x0,
+                              y0=y0, device=device)
+        dt = time.perf_counter() - t0
+        nan_n = np.full(np.shape(q), np.nan)
+        nan_m = np.full(np.shape(bmin), np.nan)
+        return SolveResult(
+            solution=Solution(x=np.asarray(r.x), y=np.asarray(r.y)),
+            info=Info(iter=int(r.iterations), iter_out=0,
+                      status_val=int(r.status),
+                      pri_res_norm=float(r.pri_res_norm),
+                      dua_res_norm=float(r.dua_res_norm),
+                      dua2_res_norm=float("nan"),
+                      objective=float(r.objective),
+                      dual_objective=float("nan"), setup_time=0.0,
+                      solve_time=dt, run_time=dt),
+            delta_x=np.asarray(r.delta_x) if r.delta_x is not None
+            else nan_n,
+            delta_y=np.asarray(r.delta_y) if r.delta_y is not None
+            else nan_m,
+            state=None)
     solver = QPALM(Q, A, q, bmin, bmax, c=c, settings=settings,
                    device=device)
     if x0 is not None or y0 is not None:

@@ -22,7 +22,12 @@ M is factored for every problem and then selected by the per-problem
 `reuse` flag, as the vmapped reference does.  FACTORIZE_KKT eliminates
 the quasi-definite block (`linalg.dense.newton_solve_kkt`, K2 on the
 result) on every iteration, without refinement, as the reference does.
-CG and STAGE raise NotImplementedError.
+FACTORIZE_CG solves the Newton system matrix-free with preconditioned CG
+(linalg/cg.py), Jacobi or block-Jacobi (the blocks factored and solved by
+K2), on dense batches and on the sparse problem of `api.QPALM(sparse=
+True)` (linalg.sparse.SparseMatrix Q and A, a batch of one; `_mv` and
+`_mtv` are the one place that tells the two apart).  STAGE raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from __future__ import annotations
 import torch
 
 from .. import constants as C
+from ..linalg import sparse as S
+from ..linalg.cg import pcg
 from ..linalg.chol import cholesky_solve, cholesky_upper
 from ..linalg.dense import gershgorin_max, newton_solve_kkt, norm_inf, \
     vec_mid
@@ -44,13 +51,26 @@ SYNC_STRIDE = 8
 _I32 = torch.int32
 
 
+def _one(v):
+    if v.shape[0] != 1:
+        raise ValueError(f"sparse data holds one problem, got a batch of "
+                         f"{v.shape[0]}")
+    return v[0]
+
+
 def _mv(M, v):
-    """Batched matrix-vector product M v: (B, r, c) x (B, c) -> (B, r)."""
+    """Batched matrix-vector product M v: (B, r, c) x (B, c) -> (B, r), or
+    a SparseMatrix (r, c) times (1, c)."""
+    if S.is_sparse(M):
+        return M.mv(_one(v))[None]
     return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
 
 
 def _mtv(M, v):
-    """Batched M' v: (B, r, c) x (B, r) -> (B, c)."""
+    """Batched M' v: (B, r, c) x (B, r) -> (B, c), or a SparseMatrix's
+    transpose times (1, r)."""
+    if S.is_sparse(M):
+        return M.tmv(_one(v))[None]
     return torch.matmul(M.transpose(-1, -2), v.unsqueeze(-1)).squeeze(-1)
 
 
@@ -75,16 +95,12 @@ def _select_state(mask, a: SolverState, b: SolverState) -> SolverState:
 
 
 def _check_method(settings: Settings) -> None:
-    if settings.factorization_method not in (C.FACTORIZE_SCHUR,
-                                             C.FACTORIZE_KKT_OR_SCHUR,
-                                             C.FACTORIZE_KKT):
-        items = {C.FACTORIZE_CG: "item 6 (linalg/cg.py)",
-                 C.FACTORIZE_STAGE: "item 9 (parallel/block_tridiag.py)"}
+    if settings.factorization_method == C.FACTORIZE_STAGE:
         raise NotImplementedError(
-            f"factorization_method {settings.factorization_method}: the "
-            "general loop runs the SCHUR and KKT paths only; ROADMAP.md "
-            "section 1 "
-            + items.get(settings.factorization_method, "items 6 and 9"))
+            f"factorization_method {settings.factorization_method} "
+            "(FACTORIZE_STAGE): the general loop runs the SCHUR, KKT and CG "
+            "paths only; ROADMAP.md section 1 item 9 "
+            "(parallel/block_tridiag.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +163,10 @@ def init_state(data: QPData, scal: ScalingInfo, settings: Settings,
         active=torch.zeros((B, m), dtype=torch.bool, device=dev),
         active_old=torch.zeros((B, m), dtype=torch.bool, device=dev),
         nb_enter=i0, nb_leave=i0,
-        L=torch.zeros((B, n, n), **kw),
+        # CG never caches a factor: a dummy 1 x 1 keeps the state O(n)
+        # (a large sparse problem must not allocate n x n; core.py:125-132)
+        L=torch.zeros((B, 1, 1) if settings.factorization_method
+                      == C.FACTORIZE_CG else (B, n, n), **kw),
         factor_valid=f0, gersh=s0,
         sigma=sigma, sigma_inv=1.0 / sigma, sqrt_sigma=torch.sqrt(sigma),
         gamma=gamma,
@@ -386,8 +405,63 @@ def is_dual_infeasible(st: SolverState, data: QPData, scal: ScalingInfo,
 
 
 # ---------------------------------------------------------------------------
-# Newton step + primal update (core.py:418-631), the SCHUR and KKT paths
+# Newton step + primal update (core.py:418-631), the SCHUR, KKT and CG paths
 # ---------------------------------------------------------------------------
+
+def _newton_cg(st: SolverState, data: QPData, settings: Settings, active,
+               neg_dphi):
+    """The matrix-free Newton direction (core.py:430-496): preconditioned
+    CG on M = Q + A' diag(sigma active) A + I/gamma, with the inexact-Newton
+    forcing term.  Returns (d, gersh), gersh the Gershgorin-style bound on
+    A' diag(sigma active) A that the gamma boost reads."""
+    Q, A = data.Q, data.A
+    sparse = S.is_sparse(A)
+    sig_act = torch.where(active, st.sigma, torch.zeros_like(st.sigma))
+    gamma_inv = 1.0 / st.gamma if settings.proximal \
+        else torch.zeros_like(st.gamma)
+
+    def matvec(v):
+        r = _mv(Q, v) + _mtv(A, sig_act * _mv(A, v))
+        if settings.proximal:
+            r = r + v * gamma_inv[:, None]
+        return r
+
+    if sparse:
+        diagM = (S.sym_diag(Q) + gamma_inv + S.ata_diag(A, sig_act[0]))[None]
+        gersh = S.ata_gershgorin_upper(A, sig_act[0])[None]
+    else:
+        diagM = (torch.diagonal(Q, dim1=-2, dim2=-1) + gamma_inv[:, None]
+                 + torch.einsum("bmn,bm->bn", A * A, sig_act))
+        # the matrix-free |A|' diag(sig) |A| 1 row-sum bound: assembling
+        # the n x n product every inner iteration for this scalar would
+        # defeat the CG mode (a conservative bound only picks a smaller
+        # boosted gamma)
+        absA = A.abs()
+        gersh = _mtv(absA, sig_act * _mv(absA, torch.ones_like(st.x))) \
+            .amax(-1)
+    if settings.cg_precond == "block_jacobi":
+        # factored block diagonals of M (kernel K2): the middle ground
+        # between diag(M) and the reference's full sparse LDL'
+        if sparse:
+            blocks = S.block_diagonals(Q, A, sig_act[0], gamma_inv[0],
+                                       settings.cg_block)
+        else:
+            blocks = S.block_diagonals_dense(Q, A, sig_act, gamma_inv,
+                                             settings.cg_block)
+        R = cholesky_upper(blocks)
+        precond = lambda r: S.block_jacobi_apply(R, r)  # noqa: E731
+    else:
+        precond = diagM
+    # inexact-Newton forcing: the CG tolerance loosens to a fraction of
+    # eps_dua_in relative to ||dphi|| and tightens to cg_tol near the end
+    dphi_norm = torch.sqrt(_dot(neg_dphi, neg_dphi))
+    forcing = torch.clamp(
+        0.01 * st.eps_dua_in / torch.clamp(dphi_norm, min=1e-30),
+        min=settings.cg_tol, max=1e-2)
+    d, _, _ = pcg(matvec, neg_dphi, precond, tol=forcing,
+                  max_iter=settings.cg_max_iter)
+    return d, gersh
+
 
 def _newton_and_linesearch(st: SolverState, data: QPData,
                            settings: Settings,
@@ -401,6 +475,13 @@ def _newton_and_linesearch(st: SolverState, data: QPData,
     nb_leave = (~active & st.active_old).sum(-1, dtype=_I32)
     reuse = st.factor_valid & (nb_enter == 0) & (nb_leave == 0)
     neg_dphi = -st.dphi
+
+    if settings.factorization_method == C.FACTORIZE_CG:
+        d, gersh = _newton_cg(st, data, settings, active, neg_dphi)
+        st = st._replace(d=d, gersh=gersh, active=active, active_old=active,
+                         nb_enter=nb_enter, nb_leave=nb_leave,
+                         factor_valid=torch.ones_like(st.factor_valid))
+        return _linesearch_step(st, data, settings)
 
     if settings.factorization_method == C.FACTORIZE_KKT:
         # refactored every iteration, never refined (core.py:520-525)

@@ -40,6 +40,7 @@ import torch
 
 from ..constants import LOBPCG_MAX_ITER, LOBPCG_TOL
 from ..linalg.dense import norm_inf, norm_two
+from ..linalg.sparse import is_sparse
 from ..precision import full_f32_matmul
 from ..scaling import scale_data
 
@@ -48,7 +49,11 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum(-1)
 
 
-def _matvec(Q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _matvec(Q, v: torch.Tensor) -> torch.Tensor:
+    """Q v for a dense batch Q (B, n, n), or a SparseMatrix Q and v (1, n)
+    (the sparse problem's pin, qpalm_tpu/api.py:190-224)."""
+    if is_sparse(Q):
+        return Q.mv(v[0])[None]
     return torch.matmul(Q, v[..., None])[..., 0]
 
 
@@ -114,10 +119,11 @@ def lobpcg_min_eig(Q: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
     Mirrors reference nonconvex.c:29-168: a 3-vector LOBPCG ([x, w, p]
     subspace) with the reference's exit adjustment lambda -= sqrt(2)*||w||_2
     + 1e-6 as a safe lower bound.  `x0` (B, n) holds the normalized initial
-    eigenvector guesses.  Returns (B,) in Q's dtype."""
+    eigenvector guesses.  Q may be a SparseMatrix with x0 (1, n).  Returns
+    (B,) in Q's dtype."""
     full_f32_matmul()
     n = Q.shape[-1]
-    everyone = torch.ones(Q.shape[0], dtype=torch.bool, device=Q.device)
+    everyone = torch.ones(x0.shape[0], dtype=torch.bool, device=x0.device)
     x, Ax, p, Ap, lam = _start(Q, x0, _matvec(Q, x0), everyone)
 
     converged = torch.zeros_like(everyone)

@@ -221,8 +221,11 @@ class SequentialMPC:
     """The closed-loop MPC: solve, apply u_0, step the plant, shift the
     initial-state equality, warm start, re-solve — the reference's
     chain80w/randomMPCsequential protocol (chain80w.m:86-120), through the
-    port's QPALM on `device`.  A step reads the solution and Info off the
-    device (one copy) and uploads the shifted bounds, nothing else."""
+    port's QPALM on `device`, or with backend="sparse" through the host
+    sparse-direct lifecycle (host_sparse.SparseQPALM: the symbolic analysis
+    made once and reused across the bound updates).  A device step reads
+    the solution and Info off the device (one copy) and uploads the
+    shifted bounds, nothing else."""
 
     def __init__(self, n_masses=6, horizon=10, seed=0, settings=None,
                  stage_structured=False, backend="device", device="cuda"):
@@ -234,11 +237,6 @@ class SequentialMPC:
                 "stage_structured=True (FACTORIZE_STAGE on the "
                 "stage-interleaved problem) is not ported: ROADMAP.md "
                 "section 1 item 9 (parallel/block_tridiag.py)")
-        if backend == "sparse":
-            raise NotImplementedError(
-                "backend='sparse' (the host sparse-direct lifecycle, "
-                "SparseQPALM) is not ported: ROADMAP.md section 1 item 8 "
-                "(host_sparse.py)")
         H, A, q, bmin, bmax, meta = mpc_chain(n_masses, horizon, seed=seed)
         self.meta = meta
         self.bmin = bmin
@@ -247,8 +245,17 @@ class SequentialMPC:
             eps_abs=1e-6, eps_rel=1e-6, proximal=False, scaling=2,
             verbose=False,
         )
-        self.solver = QPALM(H, A, q, bmin, bmax, settings=settings,
-                            device=device)
+        self._sparse = backend == "sparse"
+        if self._sparse:
+            import scipy.sparse as sp
+
+            from .host_sparse import SparseQPALM
+
+            self.solver = SparseQPALM(sp.csc_matrix(H), sp.csc_matrix(A), q,
+                                      bmin, bmax, settings=settings)
+        else:
+            self.solver = QPALM(H, A, q, bmin, bmax, settings=settings,
+                                device=device)
         self.x = meta["x0"].copy()
         self._prev = None
 
@@ -258,16 +265,24 @@ class SequentialMPC:
         nx, nu, N = meta["nx"], meta["nu"], meta["N"]
         if self._prev is not None:
             self.solver.warm_start(self._prev[0], self._prev[1])
-        res = self.solver.solve()
-        z = res.solution.x
+        if self._sparse:
+            from . import constants as C
+
+            r = self.solver.solve()
+            status = C.STATUS_STRINGS.get(r.status, "?")
+            iters, z, y = r.iterations, r.x, r.y
+        else:
+            res = self.solver.solve()
+            status, iters = res.info.status, res.info.iter
+            z, y = res.solution.x, res.solution.y
         u0 = z[N * nx: N * nx + nu]
         # plant update and receding-horizon bound shift
         self.x = meta["Ad"] @ self.x + meta["Bd"] @ u0
         self.bmin[:nx] = meta["Ad"] @ self.x
         self.bmax[:nx] = self.bmin[:nx]
         self.solver.update_bounds(self.bmin, self.bmax)
-        self._prev = (z, res.solution.y)
-        return res.info.status, res.info.iter, u0
+        self._prev = (z, y)
+        return status, iters, u0
 
     def run(self, n_steps: int) -> List[int]:
         iters = []

@@ -257,29 +257,39 @@ def test_result_types_and_verbose():
 
 def test_unported_branches_raise():
     """What the port does not have raises NotImplementedError naming its
-    ROADMAP.md item, with no fallback."""
+    ROADMAP.md item, with no fallback (item 9: FACTORIZE_STAGE and the
+    stage-structured MPC); the sparse branches that raised before (items 6
+    and 8) now run: FACTORIZE_CG, sparse=True and large scipy input take
+    the CG branch, solve routes large scipy input to solve_sparse_auto,
+    and SequentialMPC takes the sparse backend."""
+    from qpalm_tpu_torch.linalg.sparse import is_sparse
     from qpalm_tpu_torch.workloads import SequentialMPC
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        QPALM(*BASIC, settings=base_settings(
-            factorization_method=C.FACTORIZE_CG), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        QPALM(*BASIC, settings=base_settings(), sparse=True, device="cpu")
+    for solver in (QPALM(*BASIC, settings=base_settings(
+            factorization_method=C.FACTORIZE_CG), device="cpu"),
+            QPALM(*BASIC, settings=base_settings(), sparse=True,
+                  device="cpu")):
+        assert solver.sparse and is_sparse(solver._data.A)
+        assert solver.settings.factorization_method == C.FACTORIZE_CG
+        res = solver.solve()
+        assert res.info.status == "solved"
+        assert np.abs(res.solution.x - SOLUTION).max() < 1e-2 * np.abs(
+            SOLUTION).max()
     big = sp.identity(2048, format="csc")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        QPALM(big, big, np.zeros(2048), -np.ones(2048), np.ones(2048),
-              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        solve(big, big, np.zeros(2048), -np.ones(2048), np.ones(2048),
-              device="cpu")
+    assert QPALM(big, big, np.zeros(2048), -np.ones(2048), np.ones(2048),
+                 device="cpu").sparse
+    res = solve(big, big, np.ones(2048), -np.ones(2048), np.ones(2048),
+                device="cpu")
+    assert res.info.status == "solved" and res.state is None
+    np.testing.assert_allclose(res.solution.x, -np.ones(2048), atol=1e-6)
     with pytest.raises(NotImplementedError, match="item 9"):
         QPALM(*BASIC, settings=base_settings(
             factorization_method=C.FACTORIZE_STAGE, stage_block=2),
             device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         SequentialMPC(2, 3, stage_structured=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        SequentialMPC(2, 3, backend="sparse", device="cpu")
+    mpc = SequentialMPC(2, 3, backend="sparse", device="cpu")
+    assert mpc.step()[0] == "solved"
     with pytest.raises(NotImplementedError, match="CPU and CUDA"):
         QPALM(*BASIC, device="meta")
 

@@ -217,10 +217,10 @@ def test_out_of_slice_features_raise():
     """What K1 does not take now routes to the general loop and matches
     the reference's general loop at the f32 bar: use_fused='never',
     refinement, a time limit, a shape past K1's streaming tier, and the
-    f64 escalation (solve_many and solve_batch_escalate), and
-    FACTORIZE_KKT.  What is still outside the port raises, with no
-    fallback: the CG and STAGE factorization methods (ROADMAP.md section 1
-    items 6 and 9), and a negative chunk."""
+    f64 escalation (solve_many and solve_batch_escalate), FACTORIZE_KKT
+    and FACTORIZE_CG.  What is still outside the port raises, with no
+    fallback: the STAGE factorization method (ROADMAP.md section 1 item
+    9), and a negative chunk."""
     pytest.importorskip("jax")
     import dataclasses
 
@@ -262,11 +262,18 @@ def test_out_of_slice_features_raise():
     assert np.array_equal(got.iterations.numpy(),
                           np.asarray(want.iterations))
     assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
-    for method, item in ((C.FACTORIZE_CG, "item 6"),
-                         (C.FACTORIZE_STAGE, "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            solve_batch(probs, _settings(2, factorization_method=method),
-                        device="cpu")
+    # CG runs the general loop (K1 never takes it), as the reference's
+    # vmapped CG does
+    s = _settings(2, factorization_method=C.FACTORIZE_CG)
+    got, want = solve_batch(probs, s, device="cpu"), \
+        ref(jbatch.solve_batch, probs, s)
+    assert np.array_equal(got.status.numpy(), np.asarray(want.status))
+    assert np.array_equal(got.iterations.numpy(),
+                          np.asarray(want.iterations))
+    assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
+    with pytest.raises(NotImplementedError, match="item 9"):
+        solve_batch(probs, _settings(2, factorization_method=
+                                     C.FACTORIZE_STAGE), device="cpu")
     with pytest.raises(ValueError, match="chunk"):
         F.solve_batch_fused(stack_problems(probs, np.float32), _settings(2),
                             chunk=-1)

@@ -23,6 +23,11 @@ PORT_MODULES = [
     "qpalm_tpu_torch.api", "qpalm_tpu_torch.validate",
     "qpalm_tpu_torch.checkpoint", "qpalm_tpu_torch.compat",
     "qpalm_tpu_torch.large", "qpalm_tpu_torch.diff",
+    "qpalm_tpu_torch.linalg.sparse", "qpalm_tpu_torch.linalg.cg",
+    "qpalm_tpu_torch.linalg.sparse_direct", "qpalm_tpu_torch.host_sparse",
+    "qpalm_tpu_torch.io", "qpalm_tpu_torch.io.qps",
+    "qpalm_tpu_torch.io.mtx", "qpalm_tpu_torch.io.native",
+    "qpalm_tpu_torch.io.settings_io", "qpalm_tpu_torch.io.cli",
 ]
 
 

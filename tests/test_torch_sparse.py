@@ -1,0 +1,432 @@
+"""The large sparse path of the PyTorch port (qpalm_tpu_torch.linalg.sparse,
+linalg.cg, the CG method of solver/core.py and QPALM's sparse branch)
+against qpalm_tpu's on the CPU, from the same seeded numpy and scipy
+inputs.  The port's block-Jacobi preconditioner factors and solves its
+blocks with kernel K2's plain twins here.
+
+The bars: the sparse helpers' norms bit for bit and their sums within
+1e-12; block_jacobi_apply within 1e-10 relative; one pcg call with equal
+iteration counts and x within 1e-10 relative; whole solves with equal
+statuses and iterations and x within 5e-6 (the reference's own
+sparse-vs-dense bar, tests/test_sparse.py:70).
+
+CG amplifies the last-bit differences of the two packages' dot products
+(XLA's and torch's summation orders differ) from step to step, so a
+Newton system solved by many Jacobi-preconditioned CG steps ends at a
+residual 1e-4 to 1e-1 relative apart in the two packages, and now and then
+at a CG count one apart.  The outer counts then part.  Those cases are
+listed in ROADMAP.md section 3 ("Known divergences") with their spread,
+and held to it here (`SPREAD`) with the x bar unchanged; every other case
+is held to equal counts.  The sparse matvecs themselves are bit-identical
+to the reference's BCOO products (test_matvecs_are_bit_identical)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from helpers import kkt_check, random_convex_qp
+from qpalm_tpu_torch import QPALM, Settings
+from qpalm_tpu_torch import constants as C
+from qpalm_tpu_torch.linalg import sparse as TS
+from qpalm_tpu_torch.linalg.cg import pcg
+from qpalm_tpu_torch.linalg.chol import cholesky_upper
+
+jax = pytest.importorskip("jax")
+
+S = dict(eps_abs=1e-6, eps_rel=1e-6, verbose=False)
+
+
+def _sparse_qp(n, m, seed=0, density=0.05):
+    """tests/test_sparse.py:27-36."""
+    rng = np.random.default_rng(seed)
+    Qh = sp.random(n, n, density=density, random_state=seed,
+                   data_rvs=rng.standard_normal)
+    Q = (Qh @ Qh.T + 0.5 * sp.eye(n)).tocsc()
+    A = sp.random(m, n, density=density, random_state=seed + 1,
+                  data_rvs=rng.standard_normal).tocsc()
+    q = rng.standard_normal(n)
+    u = 2 * rng.random(m) + 0.1
+    return Q, A, q, -u, u
+
+
+def _laplacian_qp():
+    """tests/test_sparse.py:152-163 (test_solver_block_jacobi_mode)."""
+    rng = np.random.default_rng(5)
+    n, m = 200, 150
+    L = sp.diags([2 * np.ones(n), -np.ones(n - 1), -np.ones(n - 1)],
+                 [0, 1, -1])
+    Q = (L @ L + 0.1 * sp.eye(n)).tocsc()
+    A = (sp.random(m, n, density=0.05, random_state=1)
+         + 0.5 * sp.eye(m, n)).tocsc()
+    q = rng.standard_normal(n)
+    u = 1 + rng.random(m)
+    return Q, A, q, -u, u
+
+
+def _js(s):
+    import qpalm_tpu
+
+    return qpalm_tpu.Settings(**dataclasses.asdict(s))
+
+
+def _pair(prob, s):
+    """(reference result, port result) of QPALM(sparse=True)."""
+    import qpalm_tpu
+
+    ref = qpalm_tpu.QPALM(*prob, settings=_js(s), sparse=True).solve()
+    got = QPALM(*prob, settings=s, sparse=True, device="cpu").solve()
+    return ref, got
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float64))
+
+
+# -- the helpers ------------------------------------------------------------
+
+
+def test_helpers_match_reference():
+    from qpalm_tpu.linalg import sparse as JS
+
+    Q, A, _, _, _ = _sparse_qp(12, 17, seed=2)
+    Aj, Qj = JS.from_scipy(A, np.float64), JS.from_scipy(Q, np.float64)
+    At, Qt = TS.from_scipy(A, np.float64), TS.from_scipy(Q, np.float64)
+    assert np.array_equal(TS.row_inf_norms(At).numpy(),
+                          np.asarray(JS.row_inf_norms(Aj)))
+    assert np.array_equal(TS.col_inf_norms(At).numpy(),
+                          np.asarray(JS.col_inf_norms(Aj)))
+    E, D = np.linspace(1, 2, 17), np.linspace(0.5, 1.5, 12)
+    assert np.array_equal(
+        TS.scale_rows_cols(At, _t(E), _t(D)).to_dense().numpy(),
+        np.asarray(JS.scale_rows_cols(Aj, E, D).todense()))
+    assert np.array_equal(TS.scale_scalar(Qt, 0.3).to_dense().numpy(),
+                          np.asarray(JS.scale_scalar(Qj, 0.3).todense()))
+    np.testing.assert_allclose(TS.sym_diag(Qt).numpy(),
+                               np.asarray(JS.sym_diag(Qj)), atol=1e-12)
+    s = np.linspace(0.1, 3.0, 17)
+    np.testing.assert_allclose(TS.ata_diag(At, _t(s)).numpy(),
+                               np.asarray(JS.ata_diag(Aj, s)), atol=1e-12)
+    Ad = A.toarray()
+    M = Ad.T @ (s[:, None] * Ad)
+    gersh = float(TS.ata_gershgorin_upper(At, _t(s)))
+    assert gersh >= np.max(np.abs(M).sum(axis=1)) - 1e-9
+    assert abs(gersh - float(JS.ata_gershgorin_upper(Aj, s))) <= \
+        1e-12 * gersh
+    # an empty row and column have norm 0
+    Ae = sp.csr_matrix((np.array([2.0, -3.0]), (np.array([0, 2]),
+                                                np.array([0, 0]))),
+                       shape=(3, 2))
+    assert TS.row_inf_norms(TS.from_scipy(Ae)).tolist() == [2.0, 0.0, 3.0]
+    assert TS.col_inf_norms(TS.from_scipy(Ae)).tolist() == [3.0, 0.0]
+
+
+def test_matvecs_are_bit_identical():
+    """M v and M' w sum each row in the reference's BCOO order."""
+    from qpalm_tpu.linalg import sparse as JS
+
+    rng = np.random.default_rng(0)
+    A = sp.random(300, 200, density=0.1, random_state=1,
+                  data_rvs=rng.standard_normal)
+    v, w = rng.standard_normal(200), rng.standard_normal(300)
+    Aj, At = JS.from_scipy(A, np.float64), TS.from_scipy(A, np.float64)
+    assert np.array_equal(At.mv(_t(v)).numpy(), np.asarray(Aj @ v))
+    assert np.array_equal(At.tmv(_t(w)).numpy(), np.asarray(Aj.T @ w))
+    A32 = TS.from_scipy(A, np.float32)
+    np.testing.assert_allclose(
+        A32.mv(torch.from_numpy(v.astype(np.float32))).numpy(), A @ v,
+        rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(At.csr() @ _t(v), A @ v, atol=1e-12)
+
+
+@pytest.mark.parametrize("n, m, block", [(512, 64, 64), (100, 70, 32)])
+def test_block_diagonals_match_reference(n, m, block):
+    """The stacked blocks of M (tail padded by identity) against the
+    reference's selector products, and the dense batch's form against
+    both."""
+    from qpalm_tpu.linalg import sparse as JS
+
+    rng = np.random.default_rng(n)
+    L = sp.diags([2 * np.ones(n), -np.ones(n - 1), -np.ones(n - 1)],
+                 [0, 1, -1])
+    Q = (L @ L + 1e-4 * sp.eye(n)).tocsc()
+    A = sp.random(m, n, density=0.05, random_state=3,
+                  data_rvs=rng.standard_normal).tocsc()
+    sig = 1.0 + rng.random(m)
+    ginv = 1e-3
+    want = np.asarray(JS.block_diagonals(
+        JS.from_scipy(Q), JS.from_scipy(A), jax.numpy.asarray(sig),
+        jax.numpy.asarray(ginv), block))
+    got = TS.block_diagonals(TS.from_scipy(Q), TS.from_scipy(A), _t(sig),
+                             _t(ginv), block)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+    dense = TS.block_diagonals_dense(
+        _t(Q.toarray())[None], _t(A.toarray())[None], _t(sig)[None],
+        _t([ginv]), block)
+    np.testing.assert_allclose(dense.numpy(), want, rtol=0, atol=1e-12)
+
+
+def test_block_jacobi_apply_matches_reference():
+    """K2's twins (R'R = M) against the reference's lower factors and two
+    triangular solves."""
+    from qpalm_tpu.linalg.sparse import block_jacobi_apply as japply
+
+    rng = np.random.default_rng(4)
+    nb, block, n = 3, 16, 40
+    G = rng.standard_normal((nb, block, block))
+    blocks = G @ G.transpose(0, 2, 1) + block * np.eye(block)
+    r = rng.standard_normal(n)
+    want = np.asarray(japply(jax.numpy.linalg.cholesky(blocks), r))
+    R = cholesky_upper(_t(blocks))
+    got = TS.block_jacobi_apply(R, _t(r)[None])[0].numpy()
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
+
+
+# -- pcg --------------------------------------------------------------------
+
+
+def _pcg_problem():
+    rng = np.random.default_rng(0)
+    n, m, block = 96, 40, 32
+    # scripts/bench_sparse.py's CG class (a well-conditioned tridiagonal
+    # Q), where CG takes tens of steps, not hundreds
+    Q = sp.diags([2.0 * np.ones(n), -0.5 * np.ones(n - 1),
+                  -0.5 * np.ones(n - 1)], [0, 1, -1]).tocsc()
+    A = sp.random(m, n, density=0.05, random_state=3,
+                  data_rvs=rng.standard_normal).tocsc()
+    sig = 1.0 + rng.random(m)
+    return Q, A, sig, 1e-3, block, rng.standard_normal((3, n))
+
+
+@pytest.mark.parametrize("precond", ["jacobi", "block_jacobi"])
+def test_pcg_matches_reference(precond):
+    """One solve against the reference's pcg: equal iterations, x within
+    1e-10 relative; a batch of three equals three single runs.  The solves
+    run to 1e-10: x is only determined to the solve's tolerance, and at
+    1e-6 the two packages' x part by up to 3e-10 relative (CG's rounding;
+    ROADMAP.md section 3)."""
+    import jax.numpy as jnp
+    from qpalm_tpu.linalg import sparse as JS
+    from qpalm_tpu.linalg.cg import pcg as jpcg
+
+    Q, A, sig, ginv, block, b = _pcg_problem()
+    Qj, Aj = JS.from_scipy(Q), JS.from_scipy(A)
+    Qt, At = TS.from_scipy(Q), TS.from_scipy(A)
+
+    def jmv(v):
+        return Qj @ v + Aj.T @ (jnp.asarray(sig) * (Aj @ v)) + ginv * v
+
+    def tmv(V):
+        return torch.stack([Qt.mv(v) + At.tmv(_t(sig) * At.mv(v)) + v * ginv
+                            for v in V])
+
+    if precond == "jacobi":
+        jpre = JS.sym_diag(Qj) + ginv + JS.ata_diag(Aj, jnp.asarray(sig))
+        tpre = (TS.sym_diag(Qt) + ginv + TS.ata_diag(At, _t(sig)))[None]
+    else:
+        ch = jnp.linalg.cholesky(JS.block_diagonals(
+            Qj, Aj, jnp.asarray(sig), jnp.asarray(ginv), block))
+        jpre = lambda r: JS.block_jacobi_apply(ch, r)  # noqa: E731
+        R = cholesky_upper(TS.block_diagonals(Qt, At, _t(sig),
+                                                      _t(ginv), block))
+        tpre = lambda r: TS.block_jacobi_apply(  # noqa: E731
+            R.repeat(r.shape[0], 1, 1), r)
+    tol = 1e-10
+    singles = []
+    for i in range(3):
+        xj, _, kj = jpcg(jmv, jnp.asarray(b[i]), jpre, tol=jnp.asarray(tol),
+                         max_iter=500)
+        xt, _, kt = pcg(tmv, _t(b[i])[None], tpre,
+                        tol=torch.full((1,), tol, dtype=torch.float64),
+                        max_iter=500)
+        assert int(kt[0]) == int(kj)
+        xj = np.asarray(xj)
+        assert np.abs(xt[0].numpy() - xj).max() <= 1e-10 * np.abs(xj).max()
+        singles.append((xt[0], int(kt[0])))
+    pre = tpre.repeat(3, 1) if not callable(tpre) else tpre
+    xb, _, kb = pcg(tmv, _t(b), pre,
+                    tol=torch.full((3,), tol, dtype=torch.float64),
+                    max_iter=500)
+    for i, (x1, k1) in enumerate(singles):
+        assert int(kb[i]) == k1
+        assert torch.equal(xb[i], x1)
+
+
+def test_pcg_freezes_finished_lanes():
+    """A lane that meets its threshold stops; the others run to theirs, or
+    to max_iter."""
+    Q, A, sig, ginv, _, b = _pcg_problem()
+    Qt, At = TS.from_scipy(Q), TS.from_scipy(A)
+
+    def tmv(V):
+        return torch.stack([Qt.mv(v) + At.tmv(_t(sig) * At.mv(v)) + v * ginv
+                            for v in V])
+
+    diag = (TS.sym_diag(Qt) + ginv + TS.ata_diag(At, _t(sig)))[None]
+    tol = torch.tensor([1e-2, 1e-6, 1e-14], dtype=torch.float64)
+    _, rn, k = pcg(tmv, _t(b), diag.repeat(3, 1), tol=tol, max_iter=40)
+    assert k[0] < k[1] < k[2] == 40
+    bn = torch.linalg.norm(_t(b), dim=1)
+    assert bool((rn[:2] <= tol[:2] * bn[:2]).all())
+    x0, _, k0 = pcg(tmv, torch.zeros(1, 96, dtype=torch.float64),
+                    diag, tol=tol[:1], max_iter=60)
+    assert int(k0[0]) == 0 and not x0.any()
+
+
+# -- QPALM(sparse=True) ---------------------------------------------------
+
+# (case, preconditioner) -> the largest |outer count difference| recorded
+# in ROADMAP.md section 3; every other case must have equal counts
+SPREAD = {("20x30", "jacobi"): 1, ("40x60", "jacobi"): 3,
+          ("laplacian", "jacobi"): 4}
+CASES = {"20x30": lambda: _sparse_qp(20, 30, seed=3, density=0.3),
+         "120x180": lambda: _sparse_qp(120, 180, seed=5, density=0.05),
+         "40x60": lambda: _sparse_qp(40, 60, seed=6, density=0.2),
+         "laplacian": _laplacian_qp}
+
+
+@pytest.mark.parametrize("case, precond", [
+    ("20x30", "jacobi"), ("20x30", "block_jacobi"), ("120x180", "jacobi"),
+    ("40x60", "jacobi"), ("40x60", "block_jacobi"), ("laplacian", "jacobi"),
+])
+def test_qpalm_sparse_matches_reference(case, precond):
+    prob = CASES[case]()
+    s = Settings(**S, cg_precond=precond, cg_block=50, cg_max_iter=2000)
+    ref, got = _pair(prob, s)
+    assert got.info.status == ref.info.status == "solved"
+    assert abs(got.info.iter - int(ref.info.iter)) <= \
+        SPREAD.get((case, precond), 0)
+    assert np.abs(got.solution.x - np.asarray(ref.solution.x)).max() < 5e-6
+    Q, A, q, bl, bu = prob
+    kkt_check(Q.toarray(), A.toarray(), q, bl, bu, got.solution.x,
+              got.solution.y, tol=1e-4)
+
+
+def test_sparse_settings_and_state_stay_small():
+    """The sparse branch forces CG, pads nothing and caches a 1 x 1 L;
+    m = 0 runs as a 1 x n empty A."""
+    Q, A, q, bl, bu = _sparse_qp(30, 20, seed=8, density=0.2)
+    solver = QPALM(Q, A, q, bl, bu, settings=Settings(**S), sparse=True,
+                   device="cpu")
+    assert solver.settings.factorization_method == C.FACTORIZE_CG
+    assert TS.is_sparse(solver._data.Q) and TS.is_sparse(solver._data.A)
+    res = solver.solve()
+    assert res.info.status == "solved"
+    assert tuple(res.state.L.shape) == (1, 1, 1)
+    import qpalm_tpu
+
+    empty = sp.csc_matrix((0, 30))
+    ref = qpalm_tpu.QPALM(Q, empty, q, np.zeros(0), np.zeros(0),
+                          settings=_js(Settings(**S)), sparse=True).solve()
+    got = QPALM(Q, empty, q, np.zeros(0), np.zeros(0), settings=Settings(**S),
+                sparse=True, device="cpu").solve()
+    assert got.info.status == ref.info.status == "solved"
+    assert got.solution.y.shape == (0,)
+    assert np.abs(got.solution.x - np.asarray(ref.solution.x)).max() < 5e-6
+    np.testing.assert_allclose(Q @ got.solution.x, -q, atol=1e-5)
+
+
+def test_sparse_warm_start_and_updates():
+    """tests/test_sparse.py:85-98 in the port, held to the reference at
+    each step."""
+    import qpalm_tpu
+
+    Q, A, q, bl, bu = _sparse_qp(40, 60, seed=6, density=0.2)
+    s = Settings(**S, cg_precond="block_jacobi", cg_block=50)
+    ref = qpalm_tpu.QPALM(Q, A, q, bl, bu, settings=_js(s), sparse=True)
+    got = QPALM(Q, A, q, bl, bu, settings=s, sparse=True, device="cpu")
+    steps = [lambda o, r: None,
+             lambda o, r: o.warm_start(r.solution.x, r.solution.y),
+             lambda o, r: (o.update_bounds(bl - 0.5, bu + 0.5),
+                           o.update_q(-q))]
+    rr = rg = None
+    for step in steps:
+        step(ref, rr)
+        step(got, rg)
+        rr, rg = ref.solve(), got.solve()
+        assert rg.info.status == rr.info.status == "solved"
+        assert rg.info.iter == int(rr.info.iter)
+        assert np.abs(rg.solution.x - np.asarray(rr.solution.x)).max() \
+            < 5e-6
+    assert rg.info.iter > 0
+    kkt_check(Q.toarray(), A.toarray(), -q, bl - 0.5, bu + 0.5,
+              rg.solution.x, rg.solution.y, tol=1e-4)
+
+
+def test_sparse_primal_infeasible_certificate():
+    import qpalm_tpu
+
+    A = sp.csc_matrix(np.array([[1.0], [1.0]]))
+    prob = (sp.csc_matrix(np.eye(1)), A, np.zeros(1), np.array([1.0, -1e30]),
+            np.array([1e30, 0.0]))
+    ref = qpalm_tpu.QPALM(*prob, settings=_js(Settings(**S)),
+                          sparse=True).solve()
+    got = QPALM(*prob, settings=Settings(**S), sparse=True,
+                device="cpu").solve()
+    assert got.info.status == ref.info.status == "primal infeasible"
+    dy = got.delta_y
+    assert np.abs(A.T @ dy).max() <= 1e-6 * np.abs(dy).max()
+    np.testing.assert_allclose(dy, np.asarray(ref.delta_y), rtol=1e-6)
+
+
+def test_sparse_dual_termination_rejected():
+    Q, A, q, bl, bu = _sparse_qp(10, 12, seed=7, density=0.3)
+    with pytest.raises(ValueError, match="dual_termination"):
+        QPALM(Q, A, q, bl, bu, sparse=True, device="cpu",
+              settings=Settings(**S, enable_dual_termination=True))
+
+
+@pytest.mark.parametrize("n", [3, 24])
+def test_sparse_nonconvex_pin_matches_reference(n):
+    """The pin of api.py:190-224 on the sparse branch: LOBPCG on the scaled
+    SparseMatrix (the dense eigvalsh at n <= 3), within 1e-6 relative of
+    the reference's, and the solves agree."""
+    import qpalm_tpu
+
+    rng = np.random.default_rng(n)
+    G = rng.standard_normal((n, n))
+    Q = sp.csc_matrix((G + G.T) / 2)
+    A = sp.eye(n, format="csc")
+    q = rng.standard_normal(n)
+    bl, bu = -np.ones(n), np.ones(n)
+    s = Settings(**S, nonconvex=True)
+    ref = qpalm_tpu.QPALM(Q, A, q, bl, bu, settings=_js(s), sparse=True)
+    got = QPALM(Q, A, q, bl, bu, settings=s, sparse=True, device="cpu")
+    assert got._gamma_override is not None
+    assert abs(got._gamma_override - ref._gamma_override) <= \
+        1e-6 * ref._gamma_override
+    rr, rg = ref.solve(), got.solve()
+    assert rg.info.status == rr.info.status
+    assert np.abs(rg.solution.x - np.asarray(rr.solution.x)).max() < 1e-5
+
+
+# -- dense batches through CG ----------------------------------------------
+
+DENSE = [random_convex_qp(16 + (i % 4) * 5, 20 + i % 7, seed=700 + i,
+                          density=0.5) for i in range(8)]
+
+
+@pytest.mark.parametrize("precond, block", [("jacobi", 64),
+                                            ("block_jacobi", 8),
+                                            ("block_jacobi", 32)])
+def test_solve_batch_cg_matches_reference(precond, block):
+    """solve_batch(FACTORIZE_CG) on dense batches (the reference vmaps its
+    loop; K1 never takes CG) against qpalm_tpu.batch.solve_batch: equal
+    statuses, |dx| < 1e-6, and equal iterations where one block holds the
+    whole problem (CG then converges in one step); the many-step cases
+    part by CG's rounding (ROADMAP.md section 3) by at most 3 outer
+    iterations a lane."""
+    from qpalm_tpu.batch import solve_batch as jsolve
+    from qpalm_tpu_torch.batch import _fused_eligible, solve_batch
+
+    s = Settings(**S, factorization_method=C.FACTORIZE_CG,
+                 cg_precond=precond, cg_block=block)
+    assert not _fused_eligible(s.replace(dtype="float32"), 32, 32)
+    want = [np.asarray(a) for a in jsolve(DENSE, _js(s))]
+    got = [a.numpy() for a in solve_batch(DENSE, s, device="cpu")]
+    assert np.array_equal(got[2], want[2]) and (got[2] == 1).all()
+    spread = 0 if block == 32 else 3
+    assert np.abs(got[3] - want[3]).max() <= spread
+    assert np.abs(got[0] - want[0]).max() < 1e-6
