@@ -152,7 +152,31 @@ Phases, each asserting, any failure exiting non-zero:
      SequentialMPC(6, 20, backend="sparse"), a cold step and 10 warm
      steps, solved and refereed; (f) solve_batch(FACTORIZE_CG) on phase
      14's randomQP n=480 problems at f64 Settings(): solved, x within
-     DEFAULT_X_BAR of the SCHUR run.
+     DEFAULT_X_BAR of the SCHUR run;
+ 18. the stage-structured path (parallel/, FACTORIZE_STAGE) at f64, eps
+     1e-6, scaling 2: (a) QPALM with FACTORIZE_STAGE (block Thomas, K2 a
+     stage) on the stage-permuted mpc_chain(10, 128) (nb 29, S 128, n
+     3712) against the same problem under SCHUR (the grid factor): both
+     solved, equal iterations, x within 1e-8; (b) SequentialMPC(6, 20),
+     25 steps, stage-structured against unstructured: equal iterations at
+     every step, the plant's states within 1e-8; (c) solve_mpc_stage_
+     sharded on mpc_chain_stage_data(40, 256) (nb 119, S 256, n 30464)
+     over LocalMesh(8), LocalMesh(4) and LocalMesh(1) (block Thomas, no
+     interface): each solved, the host f64 referee's stage KKT residuals
+     on the unscaled data within eps, iterations within ST_ITER_SPREAD,
+     walls, ms an iteration and peak device memory; spike_solve with 3
+     shards (the gathered interface) against block Thomas; (d) DistMesh at
+     world size 1 over NCCL: spike_solve and the loop at horizon 32
+     bit-identical to LocalMesh(1), solve_batch_sharded on 64 randomQPs
+     n=64 lane for lane equal to solve_batch(use_fused="never") with its
+     aggregates; the dry run (parallel/dryrun.py: data-parallel batches,
+     SPIKE, the stage loop) over 2 gloo processes on the host's CPU
+     against LocalMesh(2) and on the card over NCCL against LocalMesh(1),
+     bit for bit.  Every K2 shape the phase launched is then held bit for
+     bit to its twin and timed beside the library (chol.KERNEL_SHAPES,
+     zeroed before each run and read after), and each run's K2 share
+     printed; the kernels line's rows _stage_* are (a)'s STAGE shapes,
+     _spike_* (c)'s LocalMesh(8) shapes.
 
 It prints a JSON line of the kernels' numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}} only when every phase passed.
@@ -271,6 +295,23 @@ FE_MPC, FE_MPC_STEPS = (6, 20), 25
 FE_LARGE, FE_LARGE_POLISH, FE_LARGE_B = (2048, 3072), (512, 768), 3
 FE_DIFF = (256, 384)
 FE_MPC_NPAD = 344  # FE_MPC's n = 340, padded to a multiple of 8
+# phase 18: the stage-structured path at benchmarks/RESULTS_scaling.md's
+# sizes and the reference tests' settings (eps 1e-6, scaling 2).  (a)
+# QPALM, FACTORIZE_STAGE against SCHUR, on mpc_chain(*ST_QP) (nb 29, S
+# 128, n 3712); (b) the closed-loop MPC ST_SEQ, ST_SEQ_STEPS steps; (c) the
+# stage-sharded loop on mpc_chain_stage_data(*ST_CHAIN) (nb 119, S 256, n
+# 30464) over LocalMesh(ST_MESH), LocalMesh(4) and LocalMesh(1), whose
+# iteration counts may part by ST_ITER_SPREAD (SPIKE and block Thomas add
+# in different orders; on the CPU the three are equal), and spike_solve's
+# QR fallback at (S, nb, nd) = ST_SPIKE; (d) DistMesh(1) over NCCL: the
+# loop at horizon ST_DIST_HORIZON and solve_batch_sharded on ST_DP = (B,
+# n) randomQPs
+ST_QP = (10, 128)
+ST_SEQ, ST_SEQ_STEPS = (6, 20), 25
+ST_CHAIN, ST_MESH, ST_ITER_SPREAD = (40, 256), 8, 3
+ST_SPIKE = (48, 29, 3)
+ST_DIST_HORIZON = 32
+ST_DP = (64, 64)
 
 
 def bound(flops, nbytes, peak=F32_PEAK):
@@ -2025,6 +2066,426 @@ def phase_sparse(dev):
     return numbers, launches
 
 
+def stage_counted(fn):
+    """counted(fn) with the K2 launches by shape too: (fn(), wall seconds,
+    launches by kernel, launches by (kernel, B, n, k))."""
+    from qpalm_tpu_torch.linalg import chol
+
+    chol.KERNEL_SHAPES.clear()
+    out, wall, la = counted(fn)
+    return out, wall, la, dict(chol.KERNEL_SHAPES)
+
+
+def k2_shape_rows(dev, rng, shapes):
+    """K2 at every (kernel, B, n, k) of `shapes` (k None: the factor), as
+    a phase-18 run launched it: random SPD matrices and right-hand sides
+    of that shape, the factor and each solve held bit for bit to the twins
+    (the solve's residual too), the launch checked to count under that
+    kernel, and each timed beside its twin, the library call and its
+    bound.  Returns {shape: row}."""
+    import torch
+
+    from qpalm_tpu_torch.linalg import chol
+
+    rows = {}
+    for B, n in sorted({(s[1], s[2]) for s in shapes}):
+        keys = sorted((s for s in shapes if s[1:3] == (B, n)),
+                      key=lambda s: -1 if s[3] is None else s[3])
+        dtype = torch.float64 if keys[0][0].endswith("_f64") \
+            else torch.float32
+        es = 8 if dtype == torch.float64 else 4
+        peak = F64_PEAK if dtype == torch.float64 else F32_PEAK
+        M = spd(rng, B, n, "float64" if es == 8 else "float32", dev)
+        chol.KERNEL_SHAPES.clear()
+        R = chol.cholesky_upper(M)
+        Rp = chol.cholesky_upper_plain(M)
+        torch.cuda.synchronize()
+        require(torch.equal(R, Rp), f"stage K2 ({B}, {n}): factor vs plain, "
+                f"{int((R != Rp).sum())} entries differ")
+        for key in keys:
+            name, _, _, k = key
+            if k is None:
+                launched = chol.KERNEL_SHAPES.get(key, 0)
+                fn = lambda: chol.cholesky_upper(M)  # noqa: E731
+                plain = lambda: chol.cholesky_upper_plain(M)  # noqa: E731
+                lib = lambda: torch.linalg.cholesky(M,  # noqa: E731
+                                                    upper=True)
+                work = bound(B * n ** 3 / 3, 2 * es * B * n * n, peak)
+            else:
+                shape = (B, n) if k == 1 else (B, n, k)
+                b = torch.from_numpy(rng.standard_normal(shape)).to(
+                    device=dev, dtype=dtype)
+                chol.KERNEL_SHAPES.clear()
+                x = chol.cholesky_solve(R, b)
+                xp = chol.cholesky_solve_plain(R, b)
+                torch.cuda.synchronize()
+                launched = chol.KERNEL_SHAPES.get(key, 0)
+                require(torch.equal(x, xp), f"stage K2 {key}: solve vs "
+                        f"plain, {int((x != xp).sum())} entries differ")
+                b3 = b if k > 1 else b[..., None]
+                res = (M.double() @ x.double().reshape(b3.shape)
+                       - b3.double()).abs().max().item() \
+                    / M.double().abs().max().item()
+                require(res < (1e-12 if es == 8 else 1e-3),
+                        f"stage K2 {key}: solve residual {res:.3e}")
+                fn = lambda: chol.cholesky_solve(R, b)  # noqa: E731
+                plain = lambda: chol.cholesky_solve_plain(R, b)  # noqa: E731
+                lib = lambda: torch.cholesky_solve(b3, R,  # noqa: E731
+                                                   upper=True)
+                work = bound(2 * B * n * n * k, es * B * (n * n + 2 * n * k),
+                             peak)
+            require(launched == 1, f"stage K2 {key}: the wrapper counted "
+                    f"{dict(chol.KERNEL_SHAPES)}, not this kernel")
+            rows[key] = dict(max_abs_err=0.0, ms=cuda_ms(fn, 5),
+                             plain_ms=cuda_ms(plain, 1),
+                             library_ms=cuda_ms(lib, 5), **work)
+            r = rows[key]
+            say(f"[stage K2 {name} ({B}, {n}{'' if k is None else f', k={k}'}"
+                f")] bit-identical to the twin; {r['ms']:.4f} ms (bound "
+                f"{r['bound_ms']:.4f}, {r['bound_by']}; plain "
+                f"{r['plain_ms']:.2f}; library {r['library_ms']:.4f})")
+    return rows
+
+
+def stage_share(shapes, rows):
+    """Seconds of K2 in a run: its launches by shape times each shape's
+    time."""
+    return sum(c * rows[s]["ms"] for s, c in shapes.items()) / 1e3
+
+
+def stage_referee(data, z, y_eq, y_box, eps):
+    """The host f64 KKT check of referee.check on the unscaled stage data
+    (the dynamics rows G z_k - Ap z_{k-1} = beq_k, G = [I -Bd], Ap = [Ad
+    0], then the box rows): (violation, <= 1 passes; primal residual; dual
+    residual)."""
+    import numpy as np
+
+    from qpalm_tpu_torch import constants as C
+
+    H, q, beq, lo, hi, Ad, Bd = (np.asarray(a, float) for a in data)
+    S, nb = q.shape
+    nx = beq.shape[1]
+    G = np.concatenate([np.eye(nx), -Bd], 1)
+    Ap = np.concatenate([Ad, np.zeros((nx, nb - nx))], 1)
+    z_prev = np.concatenate([np.zeros((1, nb)), z[:-1]])
+    Aeq = z @ G.T - z_prev @ Ap.T
+    zc = np.clip(z, np.maximum(lo, -C.QPALM_INFTY),
+                 np.minimum(hi, C.QPALM_INFTY))
+    pri = max(np.abs(Aeq - beq).max(), np.abs(z - zc).max())
+    Hz = np.einsum("sij,sj->si", H, z)
+    Aty = y_eq @ G + y_box
+    Aty[:-1] -= y_eq[1:] @ Ap
+    dua = np.abs(Hz + q + Aty).max()
+    eps_pri = eps + eps * max(np.abs(Aeq).max(), np.abs(z).max(),
+                              np.abs(beq).max(), np.abs(zc).max())
+    eps_dua = eps + eps * max(np.abs(Hz).max(), np.abs(q).max(),
+                              np.abs(Aty).max())
+    comp = (np.where(y_box > eps, np.abs(z - hi), 0.0)
+            + np.where(y_box < -eps, np.abs(z - lo), 0.0)).max()
+    return max(pri / eps_pri, dua / eps_dua, comp / (eps_pri + eps)), pri, \
+        dua
+
+
+def st_stage_qp(dev):
+    """Phase 18 (a): QPALM with FACTORIZE_STAGE on the stage-permuted
+    mpc_chain(*ST_QP) against the same problem under SCHUR.  Returns the
+    STAGE run's (wall, launches by kernel, by shape)."""
+    import numpy as np
+
+    from qpalm_tpu_torch import QPALM, Settings
+    from qpalm_tpu_torch import constants as C
+    from qpalm_tpu_torch.workloads import mpc_chain, mpc_stage_permutation
+
+    H, A, q, bmin, bmax, meta = mpc_chain(*ST_QP, seed=0)
+    nx, nu, N = meta["nx"], meta["nu"], meta["N"]
+    perm = mpc_stage_permutation(nx, nu, N)
+    p = (H[np.ix_(perm, perm)], A[:, perm], q[perm], bmin, bmax)
+    base = dict(eps_abs=1e-6, eps_rel=1e-6, proximal=False, scaling=2,
+                verbose=False)
+    out = {}
+    for label, s in (("STAGE", Settings(
+            factorization_method=C.FACTORIZE_STAGE, stage_block=nx + nu,
+            **base)), ("SCHUR", Settings(**base))):
+        solver = QPALM(*p, settings=s, device=dev)
+        out[label] = stage_counted(solver.solve)
+    (rs, ws, las, shs), (rd, wd, lad, shd) = out["STAGE"], out["SCHUR"]
+    dx = float(np.abs(rs.solution.x - rd.solution.x).max())
+    say(f"[stage (a) QPALM mpc_chain{ST_QP}] n={H.shape[0]} m={A.shape[0]} "
+        f"nb={nx + nu}: STAGE {rs.info.status}, {rs.info.iter} iterations, "
+        f"{ws:.3f} s, K2 launches {las}; SCHUR {rd.info.status}, "
+        f"{rd.info.iter} iterations, {wd:.3f} s, K2 launches {lad}; |x_stage "
+        f"- x_schur| {dx:.2e}")
+    require(rs.info.status == rd.info.status == "solved",
+            f"stage (a): {rs.info.status}, {rd.info.status}")
+    require(rs.info.iter == rd.info.iter, f"stage (a): iterations "
+            f"{rs.info.iter} and {rd.info.iter}")
+    require(dx <= 1e-8, f"stage (a): x {dx:.3e} apart")
+    require(all(k[0].startswith(("chol_f64", "chol_solve_f64"))
+                for k in shs), f"stage (a): STAGE launched {shs}")
+    return ws, las, shs, wd, shd
+
+
+def st_sequential(dev):
+    """Phase 18 (b): SequentialMPC(*ST_SEQ) stage-structured against the
+    unstructured one, ST_SEQ_STEPS steps: the iterations equal at every
+    step, the plant's states within 1e-8.  Returns the structured run's
+    (wall, shapes) and the unstructured run's shapes."""
+    import numpy as np
+
+    from qpalm_tpu_torch.workloads import SequentialMPC
+
+    runs = {}
+    for label, st in (("structured", True), ("unstructured", False)):
+        mpc = SequentialMPC(*ST_SEQ, seed=0, stage_structured=st,
+                            device=dev)
+        its, wall, la, sh = stage_counted(lambda: mpc.run(ST_SEQ_STEPS))
+        runs[label] = (mpc, its, wall, la, sh)
+    (m1, i1, w1, l1, s1), (m2, i2, w2, l2, s2) = runs["structured"], \
+        runs["unstructured"]
+    dx = float(np.abs(m1.x - m2.x).max())
+    say(f"[stage (b) SequentialMPC{ST_SEQ}] {ST_SEQ_STEPS} steps: structured "
+        f"{w1:.3f} s ({ST_SEQ_STEPS / w1:.1f} solves/s), unstructured "
+        f"{w2:.3f} s ({ST_SEQ_STEPS / w2:.1f}); iterations {i1}; plant "
+        f"states {dx:.2e} apart; K2 launches structured {l1}, unstructured "
+        f"{l2}")
+    require(i1 == i2, f"stage (b): iterations {i1} and {i2}")
+    require(dx <= 1e-8, f"stage (b): plant states {dx:.3e} apart")
+    return w1, s1, s2
+
+
+def st_sharded(dev):
+    """Phase 18 (c): solve_mpc_stage_sharded on mpc_chain_stage_data(
+    *ST_CHAIN) over LocalMesh(ST_MESH), LocalMesh(4) and LocalMesh(1),
+    each refereed; spike_solve's gathered interface at ST_SPIKE.  Returns
+    {nd: (wall, shapes)}, LocalMesh(ST_MESH)'s iterations and every run's
+    shapes."""
+    import numpy as np
+    import torch
+
+    from qpalm_tpu_torch import Settings
+    from qpalm_tpu_torch.parallel import LocalMesh
+    from qpalm_tpu_torch.parallel.block_tridiag import spike_solve, \
+        thomas_solve
+    from qpalm_tpu_torch.parallel.mpc_loop import mpc_chain_stage_data, \
+        solve_mpc_stage_sharded
+
+    data = mpc_chain_stage_data(*ST_CHAIN, seed=0)
+    S, nb = data.q.shape
+    s = Settings(eps_abs=1e-6, eps_rel=1e-6, scaling=2)
+    runs, all_shapes = {}, {}
+    for nd in (ST_MESH, 4, 1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        r, wall, la, sh = stage_counted(lambda: solve_mpc_stage_sharded(
+            data, s, LocalMesh(nd, device=dev)))
+        peak = torch.cuda.max_memory_allocated() - mem0
+        viol, pri, dua = stage_referee(data, r.z.cpu().numpy(),
+                                       r.y_eq.cpu().numpy(),
+                                       r.y_box.cpu().numpy(), 1e-6)
+        it = int(r.iterations)
+        say(f"[stage (c) LocalMesh({nd}) mpc_chain_stage_data{ST_CHAIN}] "
+            f"nb={nb} S={S} n={S * nb}: status {int(r.status)}, {it} "
+            f"iterations, {wall:.3f} s = {1e3 * wall / max(it, 1):.2f} ms an "
+            f"iteration; referee violation {viol:.3f} (primal {pri:.2e}, "
+            f"dual {dua:.2e}); peak device memory +{peak / 2 ** 20:.1f} MB; "
+            f"K2 launches {la}")
+        require(int(r.status) == 1, f"stage (c) LocalMesh({nd}): status "
+                f"{int(r.status)}")
+        require(viol <= 1.0, f"stage (c) LocalMesh({nd}): referee "
+                f"violation {viol:.3f}")
+        runs[nd] = (r, wall, it, sh)
+        for k, c in sh.items():
+            all_shapes[k] = all_shapes.get(k, 0) + c
+    it8 = runs[ST_MESH][2]
+    for nd in (4, 1):
+        require(abs(runs[nd][2] - it8) <= ST_ITER_SPREAD,
+                f"stage (c): LocalMesh({nd}) {runs[nd][2]} iterations, "
+                f"LocalMesh({ST_MESH}) {it8} (spread {ST_ITER_SPREAD})")
+    dz = float((runs[1][0].z - runs[ST_MESH][0].z).abs().max())
+    say(f"[stage (c)] |z_mesh{ST_MESH} - z_mesh1| {dz:.2e}; iterations "
+        f"{[runs[nd][2] for nd in (ST_MESH, 4, 1)]} (spread "
+        f"{ST_ITER_SPREAD} allowed)")
+
+    Ssp, nbsp, ndsp = ST_SPIKE
+    rng = np.random.default_rng(18)
+    D = rng.standard_normal((Ssp, nbsp, nbsp))
+    D = D @ D.transpose(0, 2, 1) + 5 * np.eye(nbsp)
+    E = 0.3 * rng.standard_normal((Ssp, nbsp, nbsp))
+    E[-1] = 0
+    D, E, b = (torch.from_numpy(a).to(dev) for a in (
+        D, E, rng.standard_normal((Ssp, nbsp))))
+    (x_sp, x_th), _, _, sh = stage_counted(lambda: (
+        spike_solve(D, E, b, LocalMesh(ndsp, device=dev)),
+        thomas_solve(D, E[:-1], b)))
+    err = float((x_sp - x_th).abs().max() / x_th.abs().max())
+    say(f"[stage (c) spike_solve nd={ndsp} (the gathered interface)] "
+        f"S={Ssp} "
+        f"nb={nbsp}: against block Thomas {err:.2e} relative")
+    require(err <= 1e-10, f"stage (c) spike nd={ndsp}: {err:.3e}")
+    for k, c in sh.items():
+        all_shapes[k] = all_shapes.get(k, 0) + c
+    return {nd: (w, sh) for nd, (_, w, _, sh) in runs.items()}, it8, \
+        all_shapes
+
+
+def st_dist(dev):
+    """Phase 18 (d): DistMesh at world size 1 over NCCL on the card:
+    spike_solve and the stage loop at horizon ST_DIST_HORIZON bit for bit
+    against LocalMesh(1), solve_batch_sharded on ST_DP randomQPs lane for
+    lane against solve_batch(use_fused="never").  Returns the shapes."""
+    import tempfile
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from qpalm_tpu_torch import Settings
+    from qpalm_tpu_torch import constants as C
+    from qpalm_tpu_torch.batch import solve_batch, stack_problems
+    from qpalm_tpu_torch.parallel import DistMesh, LocalMesh, \
+        solve_batch_sharded
+    from qpalm_tpu_torch.parallel import dryrun as dr
+    from qpalm_tpu_torch.parallel.block_tridiag import spike_solve
+    from qpalm_tpu_torch.parallel.mpc_loop import mpc_chain_stage_data, \
+        solve_mpc_stage_sharded
+    from qpalm_tpu_torch.workloads import random_qp
+
+    shapes = {}
+    # the dry run over 2 gloo processes on the host's CPU, bit for bit
+    # against LocalMesh(2)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        checked = dr.dryrun_processes(2, tmp, timeout=120.0)
+        say(f"[stage (d) dry run] 2 gloo processes bit-identical to "
+            f"LocalMesh(2) on {len(checked)} results in "
+            f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1,
+                                timeout=timedelta(seconds=60))
+        try:
+            mesh = DistMesh()
+            require(mesh.device.type == "cuda", f"DistMesh on {mesh.device}")
+            Ssp, nbsp, _ = ST_SPIKE
+            rng = np.random.default_rng(19)
+            D = rng.standard_normal((Ssp, nbsp, nbsp))
+            D = D @ D.transpose(0, 2, 1) + 5 * np.eye(nbsp)
+            D, E, b = (torch.from_numpy(a).to(dev) for a in (
+                D, 0.3 * rng.standard_normal((Ssp, nbsp, nbsp)),
+                rng.standard_normal((Ssp, nbsp))))
+            x1 = spike_solve(D, E, b, LocalMesh(1, device=dev))
+            x2 = spike_solve(D, E, b, mesh)
+            require(torch.equal(x1, x2), "stage (d): spike_solve on "
+                    "DistMesh(1) differs from LocalMesh(1)")
+            data = mpc_chain_stage_data(ST_CHAIN[0], ST_DIST_HORIZON, seed=0)
+            s = Settings(eps_abs=1e-6, eps_rel=1e-6, scaling=2)
+            r1, w1, _, sh1 = stage_counted(lambda: solve_mpc_stage_sharded(
+                data, s, LocalMesh(1, device=dev)))
+            r2, w2, _, _ = stage_counted(lambda: solve_mpc_stage_sharded(
+                data, s, mesh))
+            same = all(torch.equal(a, b_) for a, b_ in zip(r1, r2))
+            say(f"[stage (d) DistMesh(1) over NCCL] spike_solve bit-identical"
+                f"; the loop at horizon {ST_DIST_HORIZON}: status "
+                f"{int(r2.status)}, {int(r2.iterations)} iterations, "
+                f"{w2:.3f} s (LocalMesh(1) {w1:.3f} s), every field "
+                f"bit-identical: {same}")
+            require(same and int(r2.status) == 1, "stage (d): the loop on "
+                    "DistMesh(1) differs from LocalMesh(1)")
+            B, n = ST_DP
+            probs = [random_qp(n, seed=i) for i in range(B)]
+            data = stack_problems(probs, np.float64, device=dev)
+            sd = Settings()
+            gamma = torch.full((B,), sd.gamma_init, dtype=torch.float64,
+                               device=dev)
+            (res, agg), w3, _, sh3 = stage_counted(lambda: solve_batch_sharded(
+                data, torch.zeros_like(data.q), torch.zeros_like(data.bmin),
+                gamma, sd, False, False, mesh))
+            ref, w4, _, _ = stage_counted(lambda: solve_batch(
+                probs, sd.replace(use_fused="never"), device=dev))
+            n_ok = int((ref.status == C.QPALM_SOLVED).sum())
+            say(f"[stage (d) solve_batch_sharded] {B} randomQPs n={n} f64 "
+                f"Settings(): {w3:.3f} s (solve_batch {w4:.3f} s); aggregates "
+                f"n_solved {int(agg['n_solved'])}, total_iters "
+                f"{int(agg['total_iters'])}, max_iters "
+                f"{int(agg['max_iters'])}")
+            require(torch.equal(res.x, ref.x) and torch.equal(
+                res.iterations, ref.iterations) and torch.equal(
+                res.status, ref.status), "stage (d): solve_batch_sharded "
+                "differs from solve_batch lane for lane")
+            require(int(agg["n_solved"]) == n_ok and int(agg["total_iters"])
+                    == int(ref.iterations.sum()) and int(agg["max_iters"])
+                    == int(ref.iterations.max()),
+                    f"stage (d): aggregates {agg}")
+            # the dry run's three paths on the card, NCCL against LocalMesh
+            want = dr.dryrun(LocalMesh(1, device=dev))
+            try:
+                dr.compare(want, dr.dryrun(mesh), 0, 1)
+                same = True
+            except AssertionError as err:
+                same = str(err)
+            say(f"[stage (d) dry run on the card] DistMesh(1) over NCCL "
+                f"bit-identical to LocalMesh(1): {same}")
+            require(same is True, f"stage (d) dry run: {same}")
+        finally:
+            dist.destroy_process_group()
+    for sh in (sh1, sh3):
+        for k, c in sh.items():
+            shapes[k] = shapes.get(k, 0) + c
+    return shapes
+
+
+def phase_stage(dev):
+    """Phase 18: the stage-structured path on the card.  Returns (numbers,
+    launches) of the kernels line's rows: K2 at (a)'s STAGE shapes and at
+    (c)'s LocalMesh(ST_MESH) shapes."""
+    import numpy as np
+
+    t = [time.perf_counter()]
+    wa, la_a, sh_a, wd_a, sh_schur = st_stage_qp(dev)
+    t.append(time.perf_counter())
+    wb, sh_b, sh_b2 = st_sequential(dev)
+    t.append(time.perf_counter())
+    runs_c, itc, sh_call = st_sharded(dev)
+    wc, sh_c = runs_c[ST_MESH]
+    t.append(time.perf_counter())
+    sh_d = st_dist(dev)
+    t.append(time.perf_counter())
+
+    every = {}
+    for sh in (sh_a, sh_schur, sh_b, sh_b2, sh_call, sh_d):
+        for k, c in sh.items():
+            every[k] = every.get(k, 0) + c
+    rows = k2_shape_rows(dev, np.random.default_rng(180), every)
+    t.append(time.perf_counter())
+    for label, wall, sh in (("(a) STAGE", wa, sh_a),
+                            ("(a) SCHUR", wd_a, sh_schur),
+                            ("(b) structured", wb, sh_b),
+                            *((f"(c) LocalMesh({nd})", *runs_c[nd])
+                              for nd in runs_c)):
+        share = stage_share(sh, rows)
+        say(f"[stage] {label}: K2 {share:.3f} s of {wall:.3f} s "
+            f"({100 * share / wall:.1f}%), launches by shape "
+            + ", ".join(f"{k[0]} ({k[1]}, {k[2]}"
+                        + ("" if k[3] is None else f", k={k[3]}") + f") {c}"
+                        for k, c in sorted(sh.items(), key=str)))
+    say(f"[stage (c)] LocalMesh({ST_MESH}): {itc} iterations, "
+        f"{1e3 * wc / max(itc, 1):.2f} ms an iteration")
+    numbers, launches = {}, {}
+    for tag, sh in (("stage", sh_a), ("spike", sh_c)):
+        for key, count in sh.items():
+            name, B, n, k = key
+            row = f"{name}_{tag}_{B}x{n}" + ("" if k is None else f"x{k}")
+            numbers[row] = rows[key]
+            launches[row] = count
+    say("[time] phase 18 " + ", ".join(
+        f"({part}) {b - a:.1f} s" for part, a, b in zip(
+            ("a", "b", "c", "d", "K2 rows"), t, t[1:]))
+        + f", in all {t[-1] - t[0]:.1f} s")
+    return numbers, launches
+
+
 def main():
     import torch
 
@@ -2341,6 +2802,11 @@ def main():
     numbers.update(sp_numbers)
     launches.update(sp_launches)
 
+    # ---- 18. the stage-structured path ----
+    st_numbers, st_launches = phase_stage(dev)
+    numbers.update(st_numbers)
+    launches.update(st_launches)
+
     csrc = "qpalm_tpu_torch/csrc/"
     table = [
         ("fused_palm", "fused_palm", csrc + "fused_palm.cu",
@@ -2373,6 +2839,10 @@ def main():
          "scripts/probe_mosaic_scratch.py:83"),
         ("probe_assembly", "probe_assembly", csrc + "probe_stream.cu",
          "scripts/probe_mosaic_scratch.py:160"),
+        *((name, name, csrc + "chol.cu",
+           "qpalm_tpu/linalg/pallas_chol.py:"
+           + ("123" if name.startswith("chol_solve") else "98"))
+          for name in sorted(st_numbers)),
     ]
     kernels_line = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -3,7 +3,7 @@ H100.
 
 The port mirrors qpalm_tpu's module paths and names, so each module has a
 counterpart in the JAX package that it is held against in the tests.  It
-imports torch and numpy, never jax and never qpalm_tpu.  Six paths are
+imports torch and numpy, never jax and never qpalm_tpu.  Eight paths are
 ported so far.  The certified batched pipeline of bench.py:
 
     batch.stack_problems -> scaling.scale_data -> solver.fused (kernel K1)
@@ -67,14 +67,25 @@ device and on the host, with the file drivers that feed it:
     (linalg.sparse_direct.SparseLDL) | the CG path above on the device
     io.load_qps (io/qps.py, io/native.py) ; io.cli
 
+and the stage-structured path of MPC ladders, on one card or across
+processes:
+
+    QPALM / solve_batch / SequentialMPC(stage_structured=True)
+    (FACTORIZE_STAGE) -> core: M by torch.bmm -> parallel.block_tridiag
+    (extract_block_tridiag, thomas_solve: kernel K2 a stage)
+    parallel.solve_mpc_stage_sharded -> scale_stage_data -> the loop over
+    a mesh (parallel.mesh: LocalMesh, the shards one dimension of a
+    device's tensors; DistMesh, torch.distributed) -> spike_solve_local
+    (block Thomas a shard, K2; the interface by cyclic reduction)
+    parallel.solve_batch_sharded -> core.full_solve a shard
+
 Every Pallas kernel of the repository is a CUDA C++ kernel here (csrc/),
 built by nvcc at first use (_build.py); probe.py holds the streaming
 tier's memory-plan probes.  A CPU tensor runs each kernel's plain PyTorch
-twin instead; a CUDA tensor runs the kernel or raises.  What is not ported
-(FACTORIZE_STAGE, the stage-structured MPC and parallel/) raises
-NotImplementedError naming its ROADMAP.md item.  The native libraries
-(the C baseline solvers, the sparse LDL' backend and the QPS reader) are
-built by g++ from native/ at first use (_build.py).
+twin instead; a CUDA tensor runs the kernel or raises.  Not ported yet:
+the reference's constraint sharding (parallel/schur.py).  The native
+libraries (the C baseline solvers, the sparse LDL' backend and the QPS
+reader) are built by g++ from native/ at first use (_build.py).
 
 The host-side modules of the JAX package (its f64 polish, finisher,
 generators, validation, C baseline binding, host sparse solvers and file

@@ -15,10 +15,13 @@ padding) and solves the Newton systems matrix-free with preconditioned CG
 `host_sparse.solve_sparse_auto` (the native sparse-direct solvers, or CG
 on `device`), as the reference does.
 
+FACTORIZE_STAGE keeps the problem's exact shapes (no padding, which
+would shift the stage blocks) and solves each Newton system by block
+Thomas on the stage blocks (parallel/block_tridiag.py, K2 a stage).
+
 The host keeps copies of the padded bounds, so an update uploads them
 and reads nothing back; a solve reads its result off the device in
-one copy.  FACTORIZE_STAGE raises NotImplementedError naming its
-ROADMAP.md item.
+one copy.
 """
 
 from __future__ import annotations
@@ -73,11 +76,6 @@ class QPALM:
             sparse = (is_scipy and Q.shape[0] >= 2048) \
                 or settings.factorization_method == C.FACTORIZE_CG
         self.sparse = bool(sparse)
-        if settings.factorization_method == C.FACTORIZE_STAGE \
-                and not self.sparse:
-            raise NotImplementedError(
-                "FACTORIZE_STAGE is not ported: ROADMAP.md section 1 item 9 "
-                "(parallel/block_tridiag.py)")
         dtype = np.dtype(settings.dtype)
 
         if self.sparse:
@@ -110,6 +108,13 @@ class QPALM:
             Q = _densify(Q)
             A = _densify(A)
             self.n, self.m = validate_data(Q, A, q, bmin, bmax)
+            if settings.factorization_method == C.FACTORIZE_STAGE:
+                # padding would shift the stage blocks: exact shapes
+                # (qpalm_tpu/api.py:169-175)
+                if self.n % settings.stage_block:
+                    raise ValueError("FACTORIZE_STAGE: n must be divisible "
+                                     "by stage_block")
+                pad_multiple = 1
             self._n_pad = _round_up(self.n, pad_multiple)
             self._m_pad = _round_up(max(self.m, 1), pad_multiple)
             Qp, Ap, qp, bl, bu = pad_problem(Q, A, q, bmin, bmax,

@@ -22,8 +22,9 @@ that n across the whole card, one CTA an SM with a grid barrier a step
 vectors' shared memory or its ring's entries, cuts each column into
 stripes, a CTA a stripe (the stripe solve, the "wide" solve plan).
 Only a dtype no kernel takes raises; nothing falls back to a library call
-or to the twin.  Each wrapper counts its launches in `.launches`, and
-`KERNEL_LAUNCHES` counts them by kernel (the names of KERNELS).
+or to the twin.  Each wrapper counts its launches in `.launches`,
+`KERNEL_LAUNCHES` counts them by kernel (the names of KERNELS) and
+`KERNEL_SHAPES` by kernel and shape.
 """
 
 from __future__ import annotations
@@ -87,6 +88,8 @@ KERNELS = {
     ("solve", "wide", torch.float64): "chol_solve_global_wide_f64",
 }
 KERNEL_LAUNCHES: collections.Counter = collections.Counter()
+# launches by kernel and shape: (name, B, n, k), k None for a factor
+KERNEL_SHAPES: collections.Counter = collections.Counter()
 
 _ESIZE = {torch.float32: 4, torch.float64: 8}
 _SOLVE_KINDS = {"entry": 0, "panel": 1, "warp": 2}  # qp_chol_solve's kind
@@ -346,7 +349,9 @@ def cholesky_upper(M: torch.Tensor) -> torch.Tensor:
     cholesky_upper.launches += 1
     if isinstance(gplan, GridPlan):
         plan = "wide"
-    KERNEL_LAUNCHES[KERNELS["factor", plan, M.dtype]] += 1
+    name = KERNELS["factor", plan, M.dtype]
+    KERNEL_LAUNCHES[name] += 1
+    KERNEL_SHAPES[name, B, n, None] += 1
     return R
 
 
@@ -393,7 +398,9 @@ def cholesky_solve(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                    int(f64), _stream())
     check_launch("qp_chol_solve", rc)
     cholesky_solve.launches += 1
-    KERNEL_LAUNCHES[solve_kernel(plan, k, R.dtype)] += 1
+    name = solve_kernel(plan, k, R.dtype)
+    KERNEL_LAUNCHES[name] += 1
+    KERNEL_SHAPES[name, B, n, k] += 1
     return x
 
 

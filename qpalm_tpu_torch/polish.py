@@ -17,7 +17,7 @@ reported not ok; the caller retries it or hands it to finish_np.
 The numerics are numpy only.  `compress=True` solves the active-rows-only
 system by numpy's batched LU here: the reference's native Bunch-Kaufman
 path (native/batch_kkt.cpp) and its `precision="mixed"` are not copied yet
-(ROADMAP.md, section 1 item 12), so this copy is slower than the
+(ROADMAP.md, section 1 item 2), so this copy is slower than the
 reference's at large n.  With `compress=False` it is the reference's
 full-system path operation for operation.
 """

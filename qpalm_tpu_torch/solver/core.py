@@ -26,8 +26,10 @@ FACTORIZE_CG solves the Newton system matrix-free with preconditioned CG
 (linalg/cg.py), Jacobi or block-Jacobi (the blocks factored and solved by
 K2), on dense batches and on the sparse problem of `api.QPALM(sparse=
 True)` (linalg.sparse.SparseMatrix Q and A, a batch of one; `_mv` and
-`_mtv` are the one place that tells the two apart).  STAGE raises
-NotImplementedError.
+`_mtv` are the one place that tells the two apart).  FACTORIZE_STAGE
+assembles M as SCHUR does and solves it by block Thomas on its stage
+blocks (parallel/block_tridiag.py, K2 a stage), refactored every
+iteration and never refined, as the reference does.
 """
 
 from __future__ import annotations
@@ -94,15 +96,6 @@ def _select_state(mask, a: SolverState, b: SolverState) -> SolverState:
     return SolverState(*(_sel(mask, x, y) for x, y in zip(a, b)))
 
 
-def _check_method(settings: Settings) -> None:
-    if settings.factorization_method == C.FACTORIZE_STAGE:
-        raise NotImplementedError(
-            f"factorization_method {settings.factorization_method} "
-            "(FACTORIZE_STAGE): the general loop runs the SCHUR, KKT and CG "
-            "paths only; ROADMAP.md section 1 item 9 "
-            "(parallel/block_tridiag.py)")
-
-
 # ---------------------------------------------------------------------------
 # state construction / warm start (core.py:40-160)
 # ---------------------------------------------------------------------------
@@ -114,9 +107,12 @@ def init_state(data: QPData, scal: ScalingInfo, settings: Settings,
     `x_ws`/`y_ws` are unscaled (B, n) / (B, m) warm starts or None;
     `gamma_init`/`gamma_max` optional per-problem (B,) overrides of the
     settings (the nonconvex pins)."""
-    _check_method(settings)
     Q, A = data.Q, data.A
     B, n = data.q.shape
+    stage = settings.factorization_method == C.FACTORIZE_STAGE
+    if stage and n % settings.stage_block:
+        raise ValueError(f"FACTORIZE_STAGE: n = {n} is not a multiple of "
+                         f"stage_block = {settings.stage_block}")
     m = data.bmin.shape[1]
     dtype, dev = Q.dtype, Q.device
     kw = dict(dtype=dtype, device=dev)
@@ -163,9 +159,10 @@ def init_state(data: QPData, scal: ScalingInfo, settings: Settings,
         active=torch.zeros((B, m), dtype=torch.bool, device=dev),
         active_old=torch.zeros((B, m), dtype=torch.bool, device=dev),
         nb_enter=i0, nb_leave=i0,
-        # CG never caches a factor: a dummy 1 x 1 keeps the state O(n)
-        # (a large sparse problem must not allocate n x n; core.py:125-132)
-        L=torch.zeros((B, 1, 1) if settings.factorization_method
+        # CG and STAGE never cache a factor: a dummy 1 x 1 keeps the state
+        # O(n) (a large sparse problem must not allocate n x n;
+        # core.py:125-132)
+        L=torch.zeros((B, 1, 1) if stage or settings.factorization_method
                       == C.FACTORIZE_CG else (B, n, n), **kw),
         factor_valid=f0, gersh=s0,
         sigma=sigma, sigma_inv=1.0 / sigma, sqrt_sigma=torch.sqrt(sigma),
@@ -405,8 +402,39 @@ def is_dual_infeasible(st: SolverState, data: QPData, scal: ScalingInfo,
 
 
 # ---------------------------------------------------------------------------
-# Newton step + primal update (core.py:418-631), the SCHUR, KKT and CG paths
+# Newton step + primal update (core.py:418-631), the SCHUR, KKT, CG and
+# STAGE paths
 # ---------------------------------------------------------------------------
+
+def _assemble(st: SolverState, data: QPData, settings: Settings, active):
+    """M = Q + A' diag(sigma active) A (+ I/gamma) at full precision, and
+    the Gershgorin bound of A' diag(sigma active) A."""
+    Q, A = data.Q, data.A
+    w = torch.where(active, st.sqrt_sigma, torch.zeros_like(st.sqrt_sigma))
+    Bw = A * w[:, :, None]
+    AtsA = torch.bmm(Bw.transpose(1, 2), Bw)
+    g = gershgorin_max(AtsA)
+    M = Q + AtsA
+    if settings.proximal:
+        eye = torch.eye(Q.shape[-1], dtype=Q.dtype, device=Q.device)
+        M = M + (1.0 / st.gamma)[:, None, None] * eye
+    return M, g
+
+
+def _newton_stage(st: SolverState, data: QPData, settings: Settings, active,
+                  neg_dphi):
+    """The stage-structured Newton direction (core.py:497-517): M of a
+    stage-ordered problem is block-tridiagonal in blocks of stage_block,
+    so block Thomas solves it in O(S nb^3).  Returns (d, gersh)."""
+    from ..parallel.block_tridiag import extract_block_tridiag, thomas_solve
+
+    M, gersh = _assemble(st, data, settings, active)
+    nb = settings.stage_block
+    B, n = neg_dphi.shape
+    Db, Eb = extract_block_tridiag(M, nb)
+    d = thomas_solve(Db, Eb[:, :-1], neg_dphi.reshape(B, n // nb, nb))
+    return d.reshape(B, n), gersh
+
 
 def _newton_cg(st: SolverState, data: QPData, settings: Settings, active,
                neg_dphi):
@@ -469,15 +497,16 @@ def _newton_and_linesearch(st: SolverState, data: QPData,
     """update_primal_iterate (iteration.c:213-229)."""
     dtype = st.x.dtype
     Q, A = data.Q, data.A
-    n = Q.shape[-1]
     active = (st.Axys <= data.bmin) | (st.Axys >= data.bmax)
     nb_enter = (active & ~st.active_old).sum(-1, dtype=_I32)
     nb_leave = (~active & st.active_old).sum(-1, dtype=_I32)
     reuse = st.factor_valid & (nb_enter == 0) & (nb_leave == 0)
     neg_dphi = -st.dphi
 
-    if settings.factorization_method == C.FACTORIZE_CG:
-        d, gersh = _newton_cg(st, data, settings, active, neg_dphi)
+    if settings.factorization_method in (C.FACTORIZE_CG, C.FACTORIZE_STAGE):
+        newton = _newton_cg if settings.factorization_method == \
+            C.FACTORIZE_CG else _newton_stage
+        d, gersh = newton(st, data, settings, active, neg_dphi)
         st = st._replace(d=d, gersh=gersh, active=active, active_old=active,
                          nb_enter=nb_enter, nb_leave=nb_leave,
                          factor_valid=torch.ones_like(st.factor_valid))
@@ -493,14 +522,7 @@ def _newton_and_linesearch(st: SolverState, data: QPData,
         return _linesearch_step(st, data, settings)
 
     # factor M = Q + A' diag(sigma active) A + I/gamma for every problem
-    w = torch.where(active, st.sqrt_sigma, torch.zeros_like(st.sqrt_sigma))
-    Bw = A * w[:, :, None]
-    AtsA = torch.bmm(Bw.transpose(1, 2), Bw)
-    g = gershgorin_max(AtsA)
-    M = Q + AtsA
-    if settings.proximal:
-        eye = torch.eye(n, dtype=dtype, device=Q.device)
-        M = M + (1.0 / st.gamma)[:, None, None] * eye
+    M, g = _assemble(st, data, settings, active)
     L = torch.where(reuse[:, None, None], st.L, cholesky_upper(M))
     gersh = torch.where(reuse, st.gersh, g)
     d = cholesky_solve(L, neg_dphi)
@@ -706,7 +728,6 @@ def solve_from_state(st: SolverState, data: QPData, scal: ScalingInfo,
     (qpalm.c:712-716).  A problem that stops is frozen; the host checks
     for the end every SYNC_STRIDE iterations.  `settings.unroll` changes
     nothing here (core.py:855-869 guards its sub-steps the same way)."""
-    _check_method(settings)
     full_f32_matmul()
     LQ = cholesky_upper(data.Q) if settings.enable_dual_termination \
         else None

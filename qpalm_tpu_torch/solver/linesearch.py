@@ -119,21 +119,24 @@ def linesearch_from_breakpoints(eta, beta, delta, alpha):
     j_mask = p_mask ^ l_mask
     dd = delta * delta
     da_raw = delta * alpha
-    jf = j_mask.to(dtype)
-    a0 = eta + (jf * dd).sum(-1)
-    b0 = beta - (jf * da_raw).sum(-1)
+    # a mask's product is a select (XLA rewrites convert(mask) * x so), so
+    # that an infinite bound's breakpoint (alpha = inf) adds no 0 * inf
+    zero = torch.zeros((), dtype=dtype, device=delta.device)
+    a0 = eta + torch.where(j_mask, dd, zero).sum(-1)
+    b0 = beta - torch.where(j_mask, da_raw, zero).sum(-1)
     inc_a = torch.where(p_mask, dd, -dd)
     inc_b = torch.where(p_mask, -da_raw, da_raw)
 
     key = torch.where(l_mask, s, torch.full_like(s, float("inf")))
     s_sorted, order = torch.sort(key, dim=-1, stable=True)
     valid = torch.gather(l_mask, -1, order)
-    vf = valid.to(dtype)
-    ca = torch.cumsum(torch.gather(inc_a, -1, order) * vf, -1)
-    cb = torch.cumsum(torch.gather(inc_b, -1, order) * vf, -1)
-    zero = torch.zeros_like(ca[:, :1])
-    a_k = a0[:, None] + torch.cat([zero, ca[:, :-1]], -1)
-    b_k = b0[:, None] + torch.cat([zero, cb[:, :-1]], -1)
+    ca = torch.cumsum(torch.where(valid, torch.gather(inc_a, -1, order),
+                                  zero), -1)
+    cb = torch.cumsum(torch.where(valid, torch.gather(inc_b, -1, order),
+                                  zero), -1)
+    head = torch.zeros_like(ca[:, :1])
+    a_k = a0[:, None] + torch.cat([head, ca[:, :-1]], -1)
+    b_k = b0[:, None] + torch.cat([head, cb[:, :-1]], -1)
 
     crossed = valid & _fma_positive(a_k, s_sorted, b_k)
     any_crossed = crossed.any(-1)

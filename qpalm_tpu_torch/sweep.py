@@ -17,7 +17,7 @@ The rows, generators, seeds, batch-size schedule and f32 settings are the
 reference's (bench_workloads.py:61-90).  Of its 15 rows, the 8 with an
 on-chip plan run K1's on-chip tier and 7 (n_pad 136 to 352) its streaming
 tier.  Not carried over: the C baseline column (`baseline_c`, ROADMAP.md
-section 1 item 6), the timed repetitions over perturbed problem sets, and
+section 1 item 2), the timed repetitions over perturbed problem sets, and
 the reference's round pipelining (the kernel of round k+1 overlapping the
 polish of round k), which is later work.
 

@@ -25,6 +25,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import constants as C
+
 
 def make_problems(batch, n, m, seed=7):
     rng = np.random.default_rng(seed)
@@ -221,7 +223,9 @@ class SequentialMPC:
     """The closed-loop MPC: solve, apply u_0, step the plant, shift the
     initial-state equality, warm start, re-solve — the reference's
     chain80w/randomMPCsequential protocol (chain80w.m:86-120), through the
-    port's QPALM on `device`, or with backend="sparse" through the host
+    port's QPALM on `device` (with stage_structured=True on the
+    stage-interleaved problem by FACTORIZE_STAGE, block Thomas on K2), or
+    with backend="sparse" through the host
     sparse-direct lifecycle (host_sparse.SparseQPALM: the symbolic analysis
     made once and reused across the bound updates).  A device step reads
     the solution and Info off the device (one copy) and uploads the
@@ -232,11 +236,6 @@ class SequentialMPC:
         from .api import QPALM
         from .types import Settings
 
-        if stage_structured:
-            raise NotImplementedError(
-                "stage_structured=True (FACTORIZE_STAGE on the "
-                "stage-interleaved problem) is not ported: ROADMAP.md "
-                "section 1 item 9 (parallel/block_tridiag.py)")
         H, A, q, bmin, bmax, meta = mpc_chain(n_masses, horizon, seed=seed)
         self.meta = meta
         self.bmin = bmin
@@ -246,6 +245,19 @@ class SequentialMPC:
             verbose=False,
         )
         self._sparse = backend == "sparse"
+        self._perm = None
+        if stage_structured and not self._sparse:
+            # stage-interleave the variables so that the Newton system is
+            # block-tridiagonal, solved in O(S nb^3) by block Thomas
+            # (qpalm_tpu/workloads.py:223-234)
+            self._perm = mpc_stage_permutation(meta["nx"], meta["nu"],
+                                               meta["N"])
+            H = H[np.ix_(self._perm, self._perm)]
+            A = A[:, self._perm]
+            q = q[self._perm]
+            settings = settings.replace(
+                factorization_method=C.FACTORIZE_STAGE,
+                stage_block=meta["nx"] + meta["nu"])
         if self._sparse:
             import scipy.sparse as sp
 
@@ -266,8 +278,6 @@ class SequentialMPC:
         if self._prev is not None:
             self.solver.warm_start(self._prev[0], self._prev[1])
         if self._sparse:
-            from . import constants as C
-
             r = self.solver.solve()
             status = C.STATUS_STRINGS.get(r.status, "?")
             iters, z, y = r.iterations, r.x, r.y
@@ -275,13 +285,16 @@ class SequentialMPC:
             res = self.solver.solve()
             status, iters = res.info.status, res.info.iter
             z, y = res.solution.x, res.solution.y
+        self._prev = (z, y)
+        if self._perm is not None:
+            z = np.empty_like(z)
+            z[self._perm] = self._prev[0]  # back to [x_1..x_N | u_0..]
         u0 = z[N * nx: N * nx + nu]
         # plant update and receding-horizon bound shift
         self.x = meta["Ad"] @ self.x + meta["Bd"] @ u0
         self.bmin[:nx] = meta["Ad"] @ self.x
         self.bmax[:nx] = self.bmin[:nx]
         self.solver.update_bounds(self.bmin, self.bmax)
-        self._prev = (z, y)
         return status, iters, u0
 
     def run(self, n_steps: int) -> List[int]:

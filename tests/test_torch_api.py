@@ -256,12 +256,13 @@ def test_result_types_and_verbose():
 
 
 def test_unported_branches_raise():
-    """What the port does not have raises NotImplementedError naming its
-    ROADMAP.md item, with no fallback (item 9: FACTORIZE_STAGE and the
-    stage-structured MPC); the sparse branches that raised before (items 6
-    and 8) now run: FACTORIZE_CG, sparse=True and large scipy input take
+    """The branches that raised NotImplementedError before they were
+    ported now run: FACTORIZE_CG, sparse=True and large scipy input take
     the CG branch, solve routes large scipy input to solve_sparse_auto,
-    and SequentialMPC takes the sparse backend."""
+    SequentialMPC takes the sparse backend, and FACTORIZE_STAGE and the
+    stage-structured MPC run block Thomas (an n that stage_block does not
+    divide is a ValueError, as in the reference); a device that is neither
+    the CPU nor CUDA still raises."""
     from qpalm_tpu_torch.linalg.sparse import is_sparse
     from qpalm_tpu_torch.workloads import SequentialMPC
 
@@ -282,12 +283,18 @@ def test_unported_branches_raise():
                 device="cpu")
     assert res.info.status == "solved" and res.state is None
     np.testing.assert_allclose(res.solution.x, -np.ones(2048), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="stage_block"):
         QPALM(*BASIC, settings=base_settings(
-            factorization_method=C.FACTORIZE_STAGE, stage_block=2),
+            factorization_method=C.FACTORIZE_STAGE, stage_block=3),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SequentialMPC(2, 3, stage_structured=True, device="cpu")
+    res = QPALM(*BASIC, settings=base_settings(
+        factorization_method=C.FACTORIZE_STAGE, stage_block=2),
+        device="cpu").solve()
+    assert res.info.status == "solved"
+    assert np.abs(res.solution.x - SOLUTION).max() < 1e-2 * np.abs(
+        SOLUTION).max()
+    mpc = SequentialMPC(2, 3, stage_structured=True, device="cpu")
+    assert mpc.step()[0] == "solved"
     mpc = SequentialMPC(2, 3, backend="sparse", device="cpu")
     assert mpc.step()[0] == "solved"
     with pytest.raises(NotImplementedError, match="CPU and CUDA"):

@@ -218,9 +218,8 @@ def test_out_of_slice_features_raise():
     the reference's general loop at the f32 bar: use_fused='never',
     refinement, a time limit, a shape past K1's streaming tier, and the
     f64 escalation (solve_many and solve_batch_escalate), FACTORIZE_KKT
-    and FACTORIZE_CG.  What is still outside the port raises, with no
-    fallback: the STAGE factorization method (ROADMAP.md section 1 item
-    9), and a negative chunk."""
+    FACTORIZE_CG and FACTORIZE_STAGE (block Thomas, stage_block 4 of
+    n_pad 8).  A negative chunk raises."""
     pytest.importorskip("jax")
     import dataclasses
 
@@ -271,9 +270,13 @@ def test_out_of_slice_features_raise():
     assert np.array_equal(got.iterations.numpy(),
                           np.asarray(want.iterations))
     assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
-    with pytest.raises(NotImplementedError, match="item 9"):
-        solve_batch(probs, _settings(2, factorization_method=
-                                     C.FACTORIZE_STAGE), device="cpu")
+    s = _settings(2, factorization_method=C.FACTORIZE_STAGE, stage_block=4)
+    got, want = solve_batch(probs, s, device="cpu"), \
+        ref(jbatch.solve_batch, probs, s)
+    assert np.array_equal(got.status.numpy(), np.asarray(want.status))
+    assert np.array_equal(got.iterations.numpy(),
+                          np.asarray(want.iterations))
+    assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
     with pytest.raises(ValueError, match="chunk"):
         F.solve_batch_fused(stack_problems(probs, np.float32), _settings(2),
                             chunk=-1)

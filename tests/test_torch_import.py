@@ -28,6 +28,10 @@ PORT_MODULES = [
     "qpalm_tpu_torch.io", "qpalm_tpu_torch.io.qps",
     "qpalm_tpu_torch.io.mtx", "qpalm_tpu_torch.io.native",
     "qpalm_tpu_torch.io.settings_io", "qpalm_tpu_torch.io.cli",
+    "qpalm_tpu_torch.parallel", "qpalm_tpu_torch.parallel.mesh",
+    "qpalm_tpu_torch.parallel.block_tridiag",
+    "qpalm_tpu_torch.parallel.mpc_loop", "qpalm_tpu_torch.parallel.sharded",
+    "qpalm_tpu_torch.parallel.dryrun",
 ]
 
 
