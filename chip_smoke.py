@@ -174,9 +174,15 @@ Phases, each asserting, any failure exiting non-zero:
      against LocalMesh(2) and on the card over NCCL against LocalMesh(1),
      bit for bit.  Every K2 shape the phase launched is then held bit for
      bit to its twin and timed beside the library (chol.KERNEL_SHAPES,
-     zeroed before each run and read after), and each run's K2 share
+     zeroed before each run and read after), the f64 warp solve also
+     beside PR 15's entry kernel (qp_chol_solve kind 0) and at its other
+     warps a block, each held bit for bit too; each run's K2 share is
      printed; the kernels line's rows _stage_* are (a)'s STAGE shapes,
-     _spike_* (c)'s LocalMesh(8) shapes.
+     _spike_* (c)'s LocalMesh(8) shapes, _mesh1_* (c)'s LocalMesh(1)
+     shapes, the warp solve's under PR 15's names (chol_solve_f64_*).
+     Before it, every f64 warp-solve shape phases 3-17 launched
+     (chol.KERNEL_SHAPES since the start) is held bit for bit to the
+     twin.
 
 It prints a JSON line of the kernels' numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}} only when every phase passed.
@@ -375,8 +381,8 @@ KERNEL_NAMES = (("fused_palm_kernelILb1E", "K1 streaming (fused_palm_kernel"
                   for t in "fd" for w in (32, 64, 128)),
                 ("23chol_solve_panel_kernel", "K2b blocked"),
                 ("17chol_solve_kernel", "K2b entry by entry"),
-                ("22chol_solve_warp_kernelIdLi2E",
-                 "K2b f64 one vector (a warp, n <= 64)"),
+                *((f"22chol_solve_warp_kernelIdLi{e}E",
+                   f"K2b f64 warp solve, E = {e}") for e in range(1, 7)),
                 ("24chol_solve_global_kernel", "K2b global"),
                 ("assembly_probe_kernel", "assembly probe"),
                 ("scratch_probe_kernel", "scratch probe"))
@@ -2076,13 +2082,54 @@ def stage_counted(fn):
     return out, wall, la, dict(chol.KERNEL_SHAPES)
 
 
+def solve_direct(R, b, cols, kind):
+    """x of one launch of qp_chol_solve in `kind` with `cols` (columns a
+    block, or the warp solve's warps a block) on contiguous f64 R and b,
+    outside the wrapper and its counters: PR 15's entry kernel (kind 0)
+    and the warp solve at another W, timed beside the plan's kernel."""
+    import torch
+
+    from qpalm_tpu_torch import _build
+    from qpalm_tpu_torch.linalg import chol
+
+    B, n = R.shape[:2]
+    k = 1 if b.dim() == 2 else b.shape[2]
+    x = torch.empty_like(b)
+    rc = _build.kernels().qp_chol_solve(R.data_ptr(), b.data_ptr(),
+                                        x.data_ptr(), B, n, k, cols, kind, 1,
+                                        chol._stream())
+    _build.check_launch("qp_chol_solve", rc)
+    return x
+
+
+def warp_alternatives(R, b, xp, key):
+    """The f64 warp solve's alternatives at one shape, each held bit for
+    bit to the twin's xp and timed: PR 15's entry kernel (qp_chol_solve
+    kind 0, 64 columns a block) and the warp solve (kind 2) at every W of
+    chol.WARP_W up to k.  Returns (entry ms, {W: ms})."""
+    from qpalm_tpu_torch.linalg import chol
+
+    k = 1 if b.dim() == 2 else b.shape[2]
+    runs = {"entry": (min(k, 64), 0)}
+    runs.update({w: (w, 2) for w in chol.WARP_W if w <= k})
+    out = {}
+    for tag, (cols, knd) in runs.items():
+        x = solve_direct(R, b, cols, knd)
+        require(bool((x == xp).all()), f"stage K2 {key}: qp_chol_solve "
+                f"kind {knd} cols {cols} vs plain, "
+                f"{int((x != xp).sum())} entries differ")
+        out[tag] = cuda_ms(lambda: solve_direct(R, b, cols, knd), 5)
+    return out.pop("entry"), out
+
+
 def k2_shape_rows(dev, rng, shapes):
     """K2 at every (kernel, B, n, k) of `shapes` (k None: the factor), as
     a phase-18 run launched it: random SPD matrices and right-hand sides
     of that shape, the factor and each solve held bit for bit to the twins
     (the solve's residual too), the launch checked to count under that
     kernel, and each timed beside its twin, the library call and its
-    bound.  Returns {shape: row}."""
+    bound; the f64 warp solve also beside PR 15's entry kernel and at its
+    other W (warp_alternatives).  Returns {shape: row}."""
     import torch
 
     from qpalm_tpu_torch.linalg import chol
@@ -2140,10 +2187,19 @@ def k2_shape_rows(dev, rng, shapes):
                              plain_ms=cuda_ms(plain, 1),
                              library_ms=cuda_ms(lib, 5), **work)
             r = rows[key]
+            extra = ""
+            if name.startswith("chol_solve_warp"):
+                W = chol.solve_plan(B, n, k, dtype)[1]
+                r["entry_ms"], r["w_ms"] = warp_alternatives(R, b, xp, key)
+                extra = (f"; W = {W}; PR 15's entry kernel "
+                         f"{r['entry_ms']:.4f} ms "
+                         f"({r['entry_ms'] / r['ms']:.1f}x); by W "
+                         + ", ".join(
+                             f"{w}: {t:.4f}" for w, t in r["w_ms"].items()))
             say(f"[stage K2 {name} ({B}, {n}{'' if k is None else f', k={k}'}"
                 f")] bit-identical to the twin; {r['ms']:.4f} ms (bound "
                 f"{r['bound_ms']:.4f}, {r['bound_by']}; plain "
-                f"{r['plain_ms']:.2f}; library {r['library_ms']:.4f})")
+                f"{r['plain_ms']:.2f}; library {r['library_ms']:.4f}{extra})")
     return rows
 
 
@@ -2220,8 +2276,9 @@ def st_stage_qp(dev):
     require(rs.info.iter == rd.info.iter, f"stage (a): iterations "
             f"{rs.info.iter} and {rd.info.iter}")
     require(dx <= 1e-8, f"stage (a): x {dx:.3e} apart")
-    require(all(k[0].startswith(("chol_f64", "chol_solve_f64"))
-                for k in shs), f"stage (a): STAGE launched {shs}")
+    require(all(k[0] in ("chol_f64", "chol_solve_warp_f64",
+                         "chol_solve_warp_cols_f64") for k in shs),
+            f"stage (a): STAGE launched {shs}")
     return ws, las, shs, wd, shd
 
 
@@ -2436,10 +2493,30 @@ def st_dist(dev):
     return shapes
 
 
+def hold_warp_shapes(dev, rng, shapes):
+    """Every f64 warp-solve shape of `shapes` (kernel, B, n, k), on random
+    SPD matrices and right-hand sides, held bit for bit to the twin.
+    Returns the shapes held."""
+    import torch
+
+    from qpalm_tpu_torch.linalg import chol
+
+    held = sorted(s for s in shapes if s[0].startswith("chol_solve_warp"))
+    for name, B, n, k in held:
+        R = chol.cholesky_upper(spd(rng, B, n, "float64", dev))
+        b = torch.from_numpy(rng.standard_normal(
+            (B, n) if k == 1 else (B, n, k))).to(dev)
+        x, xp = chol.cholesky_solve(R, b), chol.cholesky_solve_plain(R, b)
+        torch.cuda.synchronize()
+        require(torch.equal(x, xp), f"{name} ({B}, {n}, k={k}): solve vs "
+                f"plain, {int((x != xp).sum())} entries differ")
+    return held
+
+
 def phase_stage(dev):
     """Phase 18: the stage-structured path on the card.  Returns (numbers,
     launches) of the kernels line's rows: K2 at (a)'s STAGE shapes and at
-    (c)'s LocalMesh(ST_MESH) shapes."""
+    (c)'s LocalMesh(ST_MESH) and LocalMesh(1) shapes."""
     import numpy as np
 
     t = [time.perf_counter()]
@@ -2473,9 +2550,15 @@ def phase_stage(dev):
     say(f"[stage (c)] LocalMesh({ST_MESH}): {itc} iterations, "
         f"{1e3 * wc / max(itc, 1):.2f} ms an iteration")
     numbers, launches = {}, {}
-    for tag, sh in (("stage", sh_a), ("spike", sh_c)):
+    # rows keep PR 15's names (the warp solve took over the entry plan's
+    # shapes): _stage_ (a)'s STAGE, _spike_ (c)'s LocalMesh(ST_MESH),
+    # _mesh1_ (c)'s LocalMesh(1)
+    for tag, sh in (("stage", sh_a), ("spike", sh_c),
+                    ("mesh1", runs_c[1][1])):
         for key, count in sh.items():
             name, B, n, k = key
+            if name.startswith("chol_solve_warp"):
+                name = "chol_solve_f64"
             row = f"{name}_{tag}_{B}x{n}" + ("" if k is None else f"x{k}")
             numbers[row] = rows[key]
             launches[row] = count
@@ -2558,10 +2641,11 @@ def main():
                     label += (f" {'f32' if hit[1] == 'f' else 'f64'}, E = "
                               f"{hit[2]}")
                     require(st == 0 and ld == 0, f"{label} spills")
-                # the grid factor and the stripe solve in the shapes the
-                # plans launch
-                if label in (f"K2a grid f{d}, panels of {b}" for d in (32, 64)
-                             for b in (chol.GRID_B, chol.GRID_B_WIDE)) \
+                # the grid factor, the stripe solve and the warp solve in
+                # the shapes the plans launch
+                if label.startswith("K2b f64 warp solve") or label in (
+                        f"K2a grid f{d}, panels of {b}" for d in (32, 64)
+                        for b in (chol.GRID_B, chol.GRID_B_WIDE)) \
                         or label in (
                         f"K2b stripe f{32 if dt == torch.float32 else 64}, "
                         f"stripes of {w}" for dt, w in chol.STRIPE_W.items()):
@@ -2801,6 +2885,14 @@ def main():
     sp_numbers, sp_launches = phase_sparse(dev)
     numbers.update(sp_numbers)
     launches.update(sp_launches)
+
+    # ---- the f64 warp solve at the shapes of phases 3-17 ----
+    held = hold_warp_shapes(dev, np.random.default_rng(170),
+                            dict(chol.KERNEL_SHAPES))
+    say(f"[warp solve] the {len(held)} f64 warp-solve shapes of phases 3-17 "
+        "bit-identical to the twin: " + ", ".join(
+            f"({B}, {n}, k={k})" for _, B, n, k in held))
+    require(held, "no f64 warp-solve shape in phases 3-17")
 
     # ---- 18. the stage-structured path ----
     st_numbers, st_launches = phase_stage(dev)

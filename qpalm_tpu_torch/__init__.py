@@ -99,15 +99,32 @@ linalg/sparse_direct.py, io/), held against the originals in the tests.
 """
 
 from . import constants, io
+from .constants import (FACTORIZE_CG, FACTORIZE_KKT, FACTORIZE_KKT_OR_SCHUR,
+                        FACTORIZE_SCHUR, FACTORIZE_STAGE,
+                        QPALM_DUAL_INFEASIBLE, QPALM_DUAL_TERMINATED,
+                        QPALM_ERROR, QPALM_MAX_ITER_REACHED,
+                        QPALM_PRIMAL_INFEASIBLE, QPALM_SOLVED,
+                        QPALM_TIME_LIMIT_REACHED, QPALM_UNSOLVED)
 from .api import QPALM, solve
 from .host_sparse import SparseQPALM, solve_sparse_auto, \
     solve_sparse_batch, solve_sparse_direct
 from .types import Info, QPData, ScalingInfo, Settings, Solution, \
     SolveResult, qpdata_from_numpy, settings_from
+from . import (batch, checkpoint, compat, diff, host_sparse,  # noqa: E402
+               parallel, polish, polish_device, workloads)
 
 __version__ = "0.1.0"
 
-__all__ = ["constants", "io", "QPALM", "solve", "SparseQPALM",
-           "solve_sparse_auto", "solve_sparse_batch", "solve_sparse_direct",
-           "Info", "Solution", "SolveResult", "QPData", "ScalingInfo",
-           "Settings", "qpdata_from_numpy", "settings_from"]
+# the reference's __all__ (qpalm_tpu/__init__.py:49-86), then the port's
+# own two names
+__all__ = ["QPALM", "solve", "Settings", "batch", "checkpoint", "compat",
+           "diff", "io", "parallel", "workloads", "polish", "polish_device",
+           "host_sparse", "solve_sparse_direct", "solve_sparse_auto",
+           "SparseQPALM", "solve_sparse_batch", "FACTORIZE_KKT",
+           "FACTORIZE_SCHUR", "FACTORIZE_KKT_OR_SCHUR", "FACTORIZE_CG",
+           "FACTORIZE_STAGE", "Info", "QPData", "ScalingInfo", "Solution",
+           "SolveResult", "constants", "QPALM_SOLVED",
+           "QPALM_DUAL_TERMINATED", "QPALM_MAX_ITER_REACHED",
+           "QPALM_PRIMAL_INFEASIBLE", "QPALM_DUAL_INFEASIBLE",
+           "QPALM_TIME_LIMIT_REACHED", "QPALM_UNSOLVED", "QPALM_ERROR",
+           "qpdata_from_numpy", "settings_from"]

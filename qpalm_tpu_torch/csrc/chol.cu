@@ -13,7 +13,7 @@
 // step in shared memory (16 KB per matrix at n=64, so several blocks share
 // an SM and hide each other's barriers).
 //
-// The solve gives each right-hand-side column its own thread, with no
+// The f32 solve gives each right-hand-side column its own thread, with no
 // block barrier after R is staged; a block takes the columns of one
 // matrix.  For n a multiple of PANEL (the polish's n_pad=64 among them)
 // it is blocked: the column lives in shared memory, and each step of a
@@ -42,9 +42,12 @@
 // factor's n x n doubles in 227 KB).  Their dynamic shared memory is
 // declared as floats and cast: declared as bytes, the f32 factor ran 25%
 // slower with the same arithmetic (0.0564 against 0.0453 ms at
-// (512, 64, 64), tools/stream_ab.py --kernel chol, PERF.md).  At f64 one
-// right-hand side a matrix (the general loop's solves) takes a warp a
-// matrix, R staged by one bulk copy (chol_solve_warp_kernel).  Past shared
+// (512, 64, 64), tools/stream_ab.py --kernel chol, PERF.md).  Every f64
+// solve whose R fits shared memory (n <= 170), any k and either parity of
+// n (the general loop's one vector, the stage sweeps' nb columns, the
+// polish's identity), takes a warp a column, W warps a block sharing one
+// staged R (chol_solve_warp_kernel); at f64 the entry-by-entry kernel is
+// reachable only through qp_chol_solve kind 0.  Past shared
 // memory (f32 n > 241, f64 n > 170) the factor runs right-looking in
 // panels across a thread block cluster (chol_cluster_kernel) and the solve
 // keeps R in global memory, one block a column (chol_solve_global_kernel),
@@ -121,62 +124,103 @@ __global__ void chol_solve_kernel(const T* __restrict__ gR,
   for (int l = 0; l < n; ++l) gx[boff + (size_t)l * k + col] = X[l * cols + c];
 }
 
-// R'R x = b for one matrix and one right-hand side, a block of one warp
-// (the f64 one-vector plan, n even, n <= 32 WARP_E): R's rows come into
-// shared memory by bulk asynchronous copies (one a row, rows s apart, s
-// = n or n + 2, so that s / 2 is odd: a column's entries then fall in
-// eight bank pairs, where rows n apart put a 64-row column in one) while
-// the lanes load b.  Lane t owns entries t, t + 32, ... of the vector in
-// registers, E = ceil(n / 32) of them.  The order of
-// chol_solve_global_kernel (below): forward in saxpy form (y_j = w_j /
-// R_jj, then w_l -= y_j R_jl for l > j), backward in column form (x_l =
-// y_l / R_ll, then y_r -= R_rl x_l for r < l), each product and each
-// difference rounded: bit for bit linalg/chol.py:cholesky_solve_plain.
-// What bounds it is the chain of 2n dependent divisions.  So that no
-// shuffle lies on that chain, every lane holds the step's numerator u and
-// forms the next one itself, from the next entry as it stood before the
-// step (shuffled from its owner while the division runs) less the step's
-// one term, exactly as the owner forms it; R's entries for a step are
-// loaded a step ahead.  It replaces one thread a matrix doing every step
-// alone (chol_solve_kernel at k = 1), R copied in element by element.
-constexpr int WARP_E = 6;  // entries of the vector a lane: n <= 192
+// R'R x = b at f64 for every n <= 32 WARP_E whose R fits shared memory,
+// one warp a right-hand-side column and W warps a block (the f64 plan
+// for any k and either parity of n; linalg/chol.py:solve_plan picks W).
+// The grid is (B, ceil(k / W)): a block stages matrix b's R in shared
+// memory once, rows s = warp_solve_stride(n) apart, and its W warps
+// solve columns blockIdx.y W + w against it.  s / 2 is odd for even n, so
+// a column's entries fall in eight bank pairs (rows n apart put a 64-row
+// column in one); at odd n, s = n is odd and a column read is two bank
+// wavefronts, the least a warp's 32 doubles take.  R comes in by bulk
+// asynchronous copies on an mbarrier: a copy a row where s != n (rows of
+// 8n bytes, a multiple of 32), else the matrix as one span in chunks of
+// WARP_CHUNK bytes, its first and last entries loaded by ordinary loads
+// where they lie off a 16-byte boundary (an odd-n matrix starts 8 bytes
+// off every other time, and the last matrix of an odd B n^2 ends 8 bytes
+// short of one: no copy reads past it).  Coalesced loads by the block's
+// threads, a warp a row, ran slower at every stage shape (PERF.md).  The
+// columns of b and x are strided by k, read and written once.  Lane t
+// owns entries t, t + 32, ... of its column in registers, E = ceil(n /
+// 32) of them.  The order of chol_solve_global_kernel (below): forward
+// in saxpy form (y_j = w_j / R_jj, then w_l -= y_j R_jl for l > j),
+// backward in column form (x_l = y_l / R_ll, then y_r -= R_rl x_l for r
+// < l), each product and each difference rounded: bit for bit
+// linalg/chol.py:cholesky_solve_plain, column by column.  What bounds it
+// is the chain of 2n dependent divisions.  So that no shuffle lies on
+// that chain, every lane holds the step's numerator u and forms the next
+// one itself, from the next entry as it stood before the step (shuffled
+// from its owner while the division runs) less the step's one term,
+// exactly as the owner forms it; R's row or column for a step is loaded
+// a step ahead (the chain's diagonal entry too ran 4-8% slower at n =
+// 119, PERF.md).  It replaces one thread a column doing every step alone
+// (chol_solve_kernel, PR 6's entry plan, still reachable at f64 through
+// qp_chol_solve kind 0 only), R copied in element by element.
+constexpr int WARP_E = 6;       // entries of a column a lane: n <= 192
+constexpr int WARP_W_MAX = 16;  // warps (columns) a block
+constexpr uint32_t WARP_CHUNK = 16384;  // bytes a bulk copy of a span
 
 __host__ __device__ inline int warp_solve_stride(int n) {
   return n % 4 ? n : n + 2;
 }
 
+// __launch_bounds__ names one block an SM: with the bound on threads
+// alone ptxas held E = 3 and 4 to 64 registers and spilled; with it each
+// E takes 55-90 registers and none spills (tools/ptxas_attrs.py)
 template <typename T, int E>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(32 * WARP_W_MAX, 1)
 chol_solve_warp_kernel(const T* __restrict__ gR, const T* __restrict__ gb,
-                       T* __restrict__ gx, int n) {
+                       T* __restrict__ gx, int n, int k) {
   extern __shared__ __align__(16) float smf[];
-  T* R = reinterpret_cast<T*>(smf);  // row r from R + r * s
   __shared__ uint64_t bars[2];
-  const int lane = threadIdx.x, s = warp_solve_stride(n);
-  const uint32_t row_bytes = (uint32_t)(n * sizeof(T));
-  if (lane == 0) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5, s = warp_solve_stride(n);
+  const size_t nn = (size_t)n * n;
+  const T* src = gR + blockIdx.x * nn;
+  // a span whose first entry lies 8 bytes off a 16-byte boundary is
+  // staged one entry on, so that the copy's destination is aligned too
+  const int head = s == n && ((uintptr_t)src & 15) ? 1 : 0;
+  T* R = reinterpret_cast<T*>(smf) + head;  // row r from R + r * s
+  const bool rows = s != n;
+  const int tail = rows ? 0 : (int)((nn - head) & 1);
+  const uint32_t bytes = (uint32_t)((nn - head - tail) * sizeof(T));
+  if (threadIdx.x == 0) {
     stream::bars_init(bars);
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(stream::smem_addr(bars)), "r"(n * row_bytes)
+                 ::"r"(stream::smem_addr(bars)), "r"(bytes)
                  : "memory");
   }
-  __syncwarp();  // the barrier's init and expected bytes before the copies
-  const T* src = gR + (size_t)blockIdx.x * n * n;
-  for (int r = lane; r < n; r += 32)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(stream::smem_addr(R + r * s)),
-        "l"(src + (size_t)r * n), "r"(row_bytes),
-        "r"(stream::smem_addr(bars))
-        : "memory");
-  const T* bv = gb + (size_t)blockIdx.x * n;
+  __syncthreads();  // the barrier's init and expected bytes first
+  if (w == 0) {
+    const uint32_t row_bytes = (uint32_t)(n * sizeof(T));
+    const int copies = rows ? n : (int)((bytes + WARP_CHUNK - 1) / WARP_CHUNK);
+    for (int c = lane; c < copies; c += 32) {
+      const size_t at = rows ? (size_t)c * s
+                             : head + (size_t)c * (WARP_CHUNK / sizeof(T));
+      const size_t from = rows ? (size_t)c * n : at;
+      const uint32_t size =
+          rows ? row_bytes : min(WARP_CHUNK, bytes - c * WARP_CHUNK);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+          "bytes [%0], [%1], %2, [%3];\n" ::"r"(stream::smem_addr(R + at)),
+          "l"(src + from), "r"(size), "r"(stream::smem_addr(bars))
+          : "memory");
+    }
+  }
+  if (threadIdx.x == 0 && head) R[0] = src[0];
+  if (threadIdx.x == 0 && tail) R[nn - 1] = src[nn - 1];
+  const int col = blockIdx.y * W + w;
+  const bool active = col < k;
+  const T* bv = gb + blockIdx.x * (size_t)n * k + col;
   T v[E], rv[E], rn[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int l = lane + 32 * e;
-    v[e] = l < n ? bv[l] : T(0);
+    v[e] = active && l < n ? bv[(size_t)l * k] : T(0);
   }
   stream::bar_wait(bars, 0);
+  __syncthreads();  // the ordinary stores of R
+  if (!active) return;
   // forward: v holds w (entries > j) and y (entries <= j), rv row j of R,
   // u = w_j
 #pragma unroll
@@ -243,23 +287,31 @@ chol_solve_warp_kernel(const T* __restrict__ gR, const T* __restrict__ gb,
       }
     }
   }
-  T* xv = gx + (size_t)blockIdx.x * n;
+  T* xv = gx + blockIdx.x * (size_t)n * k + col;
 #pragma unroll
   for (int e = 0; e < E; ++e) {
     const int l = lane + 32 * e;
-    if (l < n) xv[l] = v[e];
+    if (l < n) xv[(size_t)l * k] = v[e];
   }
+}
+
+// The shared memory of a block: R's n rows s apart, and one entry more
+// for a span staged one entry on (linalg/chol.py:warp_smem_bytes, beside
+// the static mbarriers).
+inline size_t warp_smem(int n) {
+  return ((size_t)n * warp_solve_stride(n) + 1) * sizeof(double);
 }
 
 template <int E>
 int launch_solve_warp(const double* R, const double* b, double* x, int B,
-                      int n, cudaStream_t s) {
-  const int smem = (int)((size_t)n * warp_solve_stride(n) * sizeof(double));
+                      int n, int k, int W, cudaStream_t s) {
+  const int smem = (int)warp_smem(n);
   cudaError_t e = cudaFuncSetAttribute(
       chol_solve_warp_kernel<double, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  chol_solve_warp_kernel<double, E><<<B, 32, smem, s>>>(R, b, x, n);
+  const dim3 grid(B, (k + W - 1) / W);
+  chol_solve_warp_kernel<double, E><<<grid, 32 * W, smem, s>>>(R, b, x, n, k);
   return (int)cudaGetLastError();
 }
 
@@ -1504,8 +1556,11 @@ extern "C" int qp_chol_solve_stripe(const void* R, const void* b, void* x,
 
 // The shared-memory solve, `cols` right-hand sides per block.  kind 1:
 // the blocked kernel (f32, n a multiple of PANEL, cols 32 or 64, R 16-byte
-// aligned); kind 2: one warp a matrix (f64, k = 1, n even, R 16-byte
-// aligned); kind 0: the entry-by-entry kernel with cols <= 64.
+// aligned); kind 2: a warp a column, `cols` warps a block (f64, n <= 32
+// WARP_E, any k, cols a power of two up to WARP_W_MAX, R 16-byte aligned
+// where n is a multiple of 4); kind 0: the entry-by-entry kernel with
+// cols <= 64 (f32 off the blocked kernel's n; at f64 no plan takes it).
+// A shape a kind cannot take returns cudaErrorInvalidValue.
 extern "C" int qp_chol_solve(const void* R, const void* b, void* x, int B,
                              int n, int k, int cols, int kind, int f64,
                              void* stream) {
@@ -1513,17 +1568,22 @@ extern "C" int qp_chol_solve(const void* R, const void* b, void* x, int B,
   const cudaStream_t s = (cudaStream_t)stream;
   if (f64) {
     if (kind == 2) {
-      if (k != 1 || n % 2 || n > 32 * WARP_E)
+      // W = cols warps a block, a power of two up to WARP_W_MAX; row
+      // copies (n a multiple of 4) need R 16-byte aligned
+      const int W = cols;
+      if (n > 32 * WARP_E || W < 1 || W > WARP_W_MAX || (W & (W - 1)) ||
+          (k + W - 1) / W > 65535 || ((uintptr_t)R & 7) ||
+          (n % 4 == 0 && ((uintptr_t)R & 15)))
         return (int)cudaErrorInvalidValue;
       const double *Rd = (const double*)R, *bd = (const double*)b;
       double* xd = (double*)x;
       switch ((n + 31) / 32) {
-        case 1: return launch_solve_warp<1>(Rd, bd, xd, B, n, s);
-        case 2: return launch_solve_warp<2>(Rd, bd, xd, B, n, s);
-        case 3: return launch_solve_warp<3>(Rd, bd, xd, B, n, s);
-        case 4: return launch_solve_warp<4>(Rd, bd, xd, B, n, s);
-        case 5: return launch_solve_warp<5>(Rd, bd, xd, B, n, s);
-        default: return launch_solve_warp<6>(Rd, bd, xd, B, n, s);
+        case 1: return launch_solve_warp<1>(Rd, bd, xd, B, n, k, W, s);
+        case 2: return launch_solve_warp<2>(Rd, bd, xd, B, n, k, W, s);
+        case 3: return launch_solve_warp<3>(Rd, bd, xd, B, n, k, W, s);
+        case 4: return launch_solve_warp<4>(Rd, bd, xd, B, n, k, W, s);
+        case 5: return launch_solve_warp<5>(Rd, bd, xd, B, n, k, W, s);
+        default: return launch_solve_warp<6>(Rd, bd, xd, B, n, k, W, s);
       }
     }
     if (kind) return (int)cudaErrorInvalidValue;

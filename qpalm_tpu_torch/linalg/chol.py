@@ -21,10 +21,13 @@ that n across the whole card, one CTA an SM with a grid barrier a step
 (the grid factor, the "wide" factor plan); the solve likewise, past its
 vectors' shared memory or its ring's entries, cuts each column into
 stripes, a CTA a stripe (the stripe solve, the "wide" solve plan).
-Only a dtype no kernel takes raises; nothing falls back to a library call
-or to the twin.  Each wrapper counts its launches in `.launches`,
-`KERNEL_LAUNCHES` counts them by kernel (the names of KERNELS) and
-`KERNEL_SHAPES` by kernel and shape.
+Every f64 solve whose R fits shared memory (n <= 170), at any k and
+either parity of n, is the warp solve: a warp a column, W warps a block
+sharing one staged R (`warp_cols`).  Only a dtype no kernel takes
+raises; nothing falls back to a library call or to the twin.  Each
+wrapper counts its launches in `.launches`, `KERNEL_LAUNCHES` counts them
+by kernel (the names of KERNELS) and `KERNEL_SHAPES` by kernel and
+shape.
 """
 
 from __future__ import annotations
@@ -75,8 +78,10 @@ KERNELS = {
     ("factor", "wide", torch.float32): "chol_global_wide",
     ("factor", "wide", torch.float64): "chol_global_wide_f64",
     ("solve", "smem", torch.float32): "chol_solve",
-    ("solve", "smem", torch.float64): "chol_solve_f64",
+    # every f64 solve whose R fits shared memory: a warp a column, one
+    # vector apart from several columns
     ("solve", "warp", torch.float64): "chol_solve_warp_f64",
+    ("solve", "warp_cols", torch.float64): "chol_solve_warp_cols_f64",
     ("solve", "global", torch.float32): "chol_solve_global",
     ("solve", "global", torch.float64): "chol_solve_global_f64",
     # the global plan with several right-hand sides (the polish's identity)
@@ -102,14 +107,27 @@ def panel_smem_bytes(n: int, cols: int) -> int:
     return 4 * (n * n + (n + cols) * (n + 4)) + 16
 
 
-WARP_N_MAX = 192  # the f64 one-vector solve: 6 entries a lane
+# the f64 warp solve (csrc/chol.cu, chol_solve_warp_kernel): 6 entries a
+# lane, a warp a column, WARP_W the warps a block it takes
+WARP_N_MAX = 192
+WARP_W = (1, 2, 4, 8, 16)
 
 
 def warp_smem_bytes(n: int) -> int:
-    """Shared memory of the f64 one-vector solve (csrc/chol.cu,
-    chol_solve_warp_kernel): R's n rows of doubles, n + 2 apart where n is
-    a multiple of 4 (else n), and two 8-byte mbarriers."""
-    return 8 * n * (n + 2 if n % 4 == 0 else n) + 16
+    """Shared memory of the f64 warp solve (csrc/chol.cu, warp_smem): R's
+    n rows of doubles, n + 2 apart where n is a multiple of 4 (else n),
+    one double more for a span staged an entry on, and two 8-byte
+    mbarriers."""
+    return 8 * (n * (n + 2 if n % 4 == 0 else n) + 1) + 16
+
+
+def warp_cols(B: int, k: int, sms: int = 132) -> int:
+    """W, the warps (columns) a block of the f64 warp solve: the most of
+    WARP_W, at most k, that still gives B ceil(k / W) >= sms blocks, so
+    that the card fills while as few blocks as that stage each matrix's R
+    (1 where even a warp a block leaves SMs idle)."""
+    return max(w for w in WARP_W if w == 1 or (w <= k and B * -(-k // w)
+                                               >= sms))
 
 
 def _esize(dtype, name) -> int:
@@ -201,9 +219,10 @@ def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
     """The solve's plan and right-hand-side columns a block, (plan, cols):
     "panel" (f32, n a multiple of PANEL, 32 or 64 columns: 32 where 64
     would leave some of the card's `sms` multiprocessors idle), "warp"
-    (f64, one right-hand side, n even: a warp a matrix, R in shared
-    memory), "entry" (R and up to 64 columns in shared memory: f64 with
-    several columns or odd n, f32 n not a multiple of PANEL) or "global"
+    (f64, any k and either parity of n up to WARP_N_MAX while R fits
+    shared memory, n <= 170: a warp a column, warp_cols(B, k, sms) warps a
+    block sharing R), "entry" (f32 n not a multiple of PANEL: R and up to
+    64 columns in shared memory) or "global"
     (one column a block, the column and R's diagonal in shared memory,
     while they fit and n <= GS_N_MAX) or "wide" (the stripe solve: a CTA a
     stripe of STRIPE_W entries of each column, every n and k past those,
@@ -214,9 +233,9 @@ def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
         cols = 64 if B * -(-k // 64) >= sms else 32
         if panel_smem_bytes(n, cols) <= SMEM_LIMIT:
             return "panel", cols
-    if (dtype == torch.float64 and k == 1 and n % 2 == 0
-            and n <= WARP_N_MAX and warp_smem_bytes(n) <= SMEM_LIMIT):
-        return "warp", 1
+    if (dtype == torch.float64 and n <= WARP_N_MAX
+            and warp_smem_bytes(n) <= SMEM_LIMIT):
+        return "warp", warp_cols(B, k, sms)
     cols = min(k, _SOLVE_COLS)
     if (n * n + n * cols) * es <= SMEM_LIMIT:
         return "entry", cols
@@ -230,14 +249,13 @@ def solve_plan(B: int, n: int, k: int, dtype, sms: int = 132):
 
 def solve_kernel(plan: str, k: int, dtype) -> str:
     """The name in KERNELS that a solve in `plan` with k right-hand sides
-    counts under: the global plan's one-vector solves apart from its
-    solves of several columns (the polish's identity)."""
-    if plan == "global":
-        key = "global_cols" if k > 1 else "global"
-    elif plan == "wide":
-        key = "wide"
+    counts under: the global and warp plans' one-vector solves apart from
+    their solves of several columns (the polish's identity, the stage
+    sweeps' nb columns)."""
+    if plan in ("global", "warp"):
+        key = plan + ("_cols" if k > 1 else "")
     else:
-        key = "warp" if plan == "warp" else "smem"
+        key = "wide" if plan == "wide" else "smem"
     return KERNELS["solve", key, dtype]
 
 
@@ -375,7 +393,10 @@ def cholesky_solve(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     plan, cols = solve_plan(B, n, k, R.dtype, sms)
     R = R.contiguous()
     b = b.contiguous()
-    if plan in ("panel", "warp") and R.data_ptr() % 16:  # bulk copy, float4
+    # bulk copies of rows and float4 loads; the warp solve copies R of n
+    # not a multiple of 4 as one span, from any double's address
+    if (plan == "panel" or (plan == "warp" and n % 4 == 0)) \
+            and R.data_ptr() % 16:
         R = R.clone()
     x = torch.empty_like(b)
     with torch.cuda.device(R.device):

@@ -111,7 +111,7 @@ def is_sparse(M) -> bool:
     return isinstance(M, SparseMatrix)
 
 
-def from_scipy(M, dtype=None, device="cpu") -> SparseMatrix:
+def from_scipy(M, dtype=None, device="cuda") -> SparseMatrix:
     """scipy sparse (any format) -> SparseMatrix on `device`, duplicates
     summed, entries sorted by row, then column."""
     import scipy.sparse as sp

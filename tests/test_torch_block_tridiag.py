@@ -226,7 +226,7 @@ def _cuda():
                                      (3, 29, (29, 59))])
 def test_cuda_k2_at_stage_shapes_is_bit_identical(B, nb, ks):
     """K2 at the stage shapes (factor (B, nb, nb), solves of the stage
-    counts of columns: f64, odd nb, the "entry" plan) bit for bit against
+    counts of columns: f64, odd nb, the warp plan) bit for bit against
     the twins, and block Thomas on the card against the CPU's."""
     from qpalm_tpu_torch.linalg import chol
 

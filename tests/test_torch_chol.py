@@ -208,10 +208,19 @@ def test_factor_plan_selection(n, dtype, plan):
     (64, 240, 64, torch.float32, ("global", 1)),
     (64, 480, 1, torch.float32, ("global", 1)),
     (512, 64, 1, torch.float64, ("warp", 1)),
-    (512, 64, 64, torch.float64, ("entry", 64)),
+    (512, 64, 64, torch.float64, ("warp", 16)),
     (64, 168, 1, torch.float64, ("warp", 1)),
-    (64, 169, 1, torch.float64, ("entry", 1)),
+    (64, 169, 1, torch.float64, ("warp", 1)),
     (64, 170, 1, torch.float64, ("warp", 1)),
+    (1, 119, 1, torch.float64, ("warp", 1)),
+    (1, 119, 119, torch.float64, ("warp", 1)),
+    (8, 119, 119, torch.float64, ("warp", 4)),
+    (8, 119, 239, torch.float64, ("warp", 8)),
+    (1, 29, 29, torch.float64, ("warp", 1)),
+    (64, 33, 1, torch.float64, ("warp", 1)),
+    (2, 169, 7, torch.float64, ("warp", 1)),
+    (100, 33, 3, torch.float64, ("warp", 2)),
+    (132, 17, 17, torch.float64, ("warp", 16)),
     (64, 171, 1, torch.float64, ("global", 1)),
     (128, 224, 1, torch.float64, ("global", 1)),
     (64, 211, 211, torch.float32, ("entry", 64)),
@@ -234,18 +243,20 @@ def test_factor_plan_selection(n, dtype, plan):
     (4, 480, 5, torch.float32, ("global", 1))])
 def test_solve_plan_selection(B, n, k, dtype, plan):
     """The solve: the blocked kernel for f32 n a multiple of 8 whose plan
-    fits, a warp a matrix for f64 one-vector solves of even n that fit,
-    else R and the columns in shared memory, else global memory: the
+    fits, a warp a column for every f64 solve whose R fits (any k, either
+    parity of n; W warps a block: the most of 1, 2, 4, 8, 16, at most k,
+    that leave B ceil(k / W) >= 132 blocks), else R and the columns in
+    shared memory (f32), else global memory: the
     column and R's diagonal in shared memory while they fit and n <= 16384
     for more than 16 columns in all (or n < 480), else the wide plan (the
     stripe solve: every n, and at most 16 columns from n = 480 on, where
-    it measured faster).  The global plan counts its one-vector solves and
-    its solves of several columns (the polish's identity from f32 n = 212)
-    apart."""
+    it measured faster).  The global and warp plans count their one-vector
+    solves and their solves of several columns (the polish's identity from
+    f32 n = 212, the stage sweeps' nb columns) apart."""
     assert chol.solve_plan(B, n, k, dtype, sms=132) == plan
-    if plan[0] == "global":
+    if plan[0] in ("global", "warp"):
         assert chol.solve_kernel(plan[0], k, dtype) == (
-            "chol_solve_global" + ("_cols" if k > 1 else "")
+            f"chol_solve_{plan[0]}" + ("_cols" if k > 1 else "")
             + ("_f64" if dtype == torch.float64 else ""))
 
 
@@ -282,6 +293,23 @@ def test_dispatch_raises_rather_than_falls_back():
                        torch.empty((2, 8), dtype=torch.float64,
                                    device="meta"))
     assert (cholesky_upper.launches, cholesky_solve.launches) == before
+
+
+@pytest.mark.parametrize("B,n,k", [(1, 29, 29), (3, 119, 5), (2, 17, 1),
+                                   (8, 33, 4)])
+def test_twin_solves_odd_n_several_columns_at_float64(B, n, k):
+    """The twin at the shapes the f64 warp solve now takes (odd n, several
+    columns): R'R x = b to 1e-12 at f64, each column equal to its own
+    one-vector solve, bit for bit."""
+    M = _spd_batch(B, n, seed=25 + n, dtype=np.float64)
+    R = cholesky_upper_plain(torch.from_numpy(M))
+    b = np.random.default_rng(26).standard_normal((B, n, k))
+    x = cholesky_solve_plain(R, torch.from_numpy(b)).numpy()
+    assert np.max(np.abs(M @ x - b)) < 1e-12 * np.abs(M).max() \
+        * max(np.abs(x).max(), 1.0)
+    for c in range(k):
+        xc = cholesky_solve_plain(R, torch.from_numpy(b[:, :, c])).numpy()
+        assert np.array_equal(xc, x[:, :, c])
 
 
 @pytest.mark.parametrize("n", [8, 33])
@@ -341,11 +369,22 @@ def test_cuda_factor_plans_are_bit_identical_to_plain(B, n, dtype):
     (3, 481, 0, torch.float64), (3, 483, 0, torch.float32),
     (4, 256, -1, torch.float32), (1, 8191, 0, torch.float64),
     (1, 8193, 0, torch.float64), (1, 16383, 0, torch.float32),
-    (1, 16384, 0, torch.float32)])
+    (1, 16384, 0, torch.float32),
+    (1, 119, 0, torch.float64), (1, 119, 119, torch.float64),
+    (8, 119, 239, torch.float64), (1, 29, 0, torch.float64),
+    (3, 29, 59, torch.float64), (1, 17, 0, torch.float64),
+    (64, 33, 0, torch.float64), (2, 169, 0, torch.float64),
+    (5, 31, 3, torch.float64), (5, 33, 3, torch.float64),
+    (5, 63, 0, torch.float64), (5, 65, 2, torch.float64),
+    (3, 169, 17, torch.float64), (64, 64, -1, torch.float64),
+    (100, 33, 3, torch.float64)])
 def test_cuda_solve_plans_are_bit_identical_to_plain(B, n, k, dtype):
-    """K2b's f64 instantiation (a warp a matrix for one vector of even n)
-    and its global plan against the twin, bit for bit; k = 0 is one
-    vector, k = -1 the polish's identity right-hand sides.  The global
+    """K2b's f64 warp solve (a warp a column, any k and parity of n, W
+    warps a block) and its global plan against the twin, bit for bit;
+    k = 0 is one vector, k = -1 the polish's identity right-hand sides.
+    The warp solve at the stage sweeps' shapes (odd nb: R staged as one
+    span, an odd matrix's first entry 8 bytes off a 16-byte boundary), at
+    E's edges n = 31, 33, 63, 65 and at several warps a block.  The global
     solve at the general loop's (64, 480), at odd n (rows of R not 16-byte
     aligned), at the identity's smallest global shape past f32 n = 211,
     and at n = 512 E +- 1 where E steps up to 32 (f64 8192, f32 16384,

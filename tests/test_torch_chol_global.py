@@ -9,10 +9,12 @@ by plain emulations of their schedules, and their plans:
       with the panel's products in row order: bit for bit
       cholesky_upper_plain, ragged tiles and last panels included, at f32
       and f64;
-  (b) the f64 one-vector solve (chol_solve_warp_kernel): lanes owning
-      entries t, t + 32, ..., every lane forming each step's numerator
-      itself, forward in saxpy form and backward in column form: bit for
-      bit cholesky_solve_plain;
+  (b) the f64 warp solve (chol_solve_warp_kernel): a warp a column, lanes
+      owning entries t, t + 32, ..., every lane forming each step's
+      numerator itself, forward in saxpy form and backward in column form:
+      bit for bit cholesky_solve_plain, at odd n and several columns too;
+      its staging of R (row copies, or one span with a ragged first and
+      last entry) covering each entry once inside its matrix;
   (c) the global solve (chol_solve_global_kernel): threads owning entries
       t, t + nt, ..., each loading its entries of R for step s + D at step
       s into a ring of D registers, every quotient written into its entry a
@@ -751,13 +753,105 @@ def test_wide_plans_mirror_the_c_side():
 
 
 def test_warp_plan_takes_f64_one_vector_of_even_n():
+    """The warp plan takes every f64 solve whose R fits shared memory: one
+    vector of even n as before, and since the plan's redesign odd n and
+    several columns too (W warps a block from warp_cols); f32 never."""
     for n in range(1, 200):
-        plan = chol.solve_plan(512, n, 1, torch.float64)[0]
-        fits = (n % 2 == 0 and n <= chol.WARP_N_MAX
+        fits = (n <= chol.WARP_N_MAX
                 and chol.warp_smem_bytes(n) <= chol.SMEM_LIMIT)
-        assert (plan == "warp") == fits, n
-        assert chol.solve_plan(512, n, 2, torch.float64)[0] != "warp"
+        assert fits == (n <= 170), n
+        for B, k in ((512, 1), (512, 2), (1, 1), (8, 239), (3, 59)):
+            plan = chol.solve_plan(B, n, k, torch.float64)
+            assert (plan[0] == "warp") == fits, (B, n, k)
+            if fits:
+                assert plan[1] == chol.warp_cols(B, k)
+                assert -(-k // plan[1]) <= 65535
         assert chol.solve_plan(512, n, 1, torch.float32)[0] != "warp"
+    assert chol.solve_plan(1, 171, 1, torch.float64) == ("global", 1)
+
+
+@pytest.mark.parametrize("B,k", [(1, 1), (1, 200), (8, 119), (8, 239),
+                                 (64, 64), (512, 1), (512, 3), (132, 16),
+                                 (131, 16)])
+def test_warp_cols_fills_the_card_with_fewest_copies_of_R(B, k):
+    """W is the largest power of two up to 16 and k whose B ceil(k / W)
+    blocks still fill 132 SMs, else 1; the C side takes the same set."""
+    W = chol.warp_cols(B, k, sms=132)
+    assert W in chol.WARP_W and (W == 1 or W <= k)
+    if W > 1:
+        assert B * -(-k // W) >= 132
+    bigger = [w for w in chol.WARP_W if w > W and w <= k]
+    assert all(B * -(-k // w) < 132 for w in bigger)
+    src = _CHOL_CU.read_text()
+    assert "constexpr int WARP_W_MAX = 16;" in src
+    assert max(chol.WARP_W) == 16
+
+
+def _warp_stage(base, m, n, chunk=16384):
+    """chol_solve_warp_kernel's bulk staging of matrix m, whose R
+    starts at byte base + 8 m n^2: (row stride s, the byte of R in shared
+    memory, the copies as (shared byte, global byte, bytes), the entries
+    loaded one by one)."""
+    s = n if n % 4 else n + 2
+    nn = n * n
+    src0 = base + 8 * m * nn
+    head = 1 if s == n and src0 % 16 else 0
+    r0 = 8 * head
+    if s != n:
+        return s, r0, [(r0 + 8 * r * s, src0 + 8 * r * n, 8 * n)
+                       for r in range(n)], []
+    tail = (nn - head) & 1
+    nbytes = 8 * (nn - head - tail)
+    copies = [(r0 + 8 * head + c, src0 + 8 * head + c, min(chunk, nbytes - c))
+              for c in range(0, nbytes, chunk)]
+    return s, r0, copies, [0] * head + [nn - 1] * tail
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 17, 29, 33, 64, 65, 119, 126, 128,
+                               169, 170])
+def test_warp_staging_covers_R_once_inside_the_matrix(n):
+    """Every entry of each matrix lands once at row r * s + column c of the
+    staged R; every bulk copy is 16-byte aligned at both ends, a multiple
+    of 16 bytes, and reads only its own matrix (the last matrix of an odd B
+    n^2 included); the staged R fits warp_smem_bytes.  Bases 8 bytes off
+    16 only where the wrapper allows them (n not a multiple of 4)."""
+    src = _CHOL_CU.read_text()
+    assert "constexpr uint32_t WARP_CHUNK = 16384;" in src
+    assert "const int head = s == n && ((uintptr_t)src & 15) ? 1 : 0;" in src
+    assert "return ((size_t)n * warp_solve_stride(n) + 1) * sizeof(double);" \
+        in src
+    for base in ((0, 8) if n % 4 else (0,)):
+        for m in range(3):
+            s, r0, copies, singles = _warp_stage(base, m, n)
+            src0 = base + 8 * m * n * n
+            seen = np.zeros(n * n, int)
+            for dst, gsrc, size in copies:
+                assert dst % 16 == 0 and gsrc % 16 == 0 and size % 16 == 0
+                assert 0 < size and src0 <= gsrc
+                assert gsrc + size <= src0 + 8 * n * n
+                for off in range(0, size, 8):
+                    e = (gsrc + off - src0) // 8
+                    r, c = divmod(e, n)
+                    assert dst + off == r0 + 8 * (r * s + c)
+                    seen[e] += 1
+            for e in singles:
+                seen[e] += 1
+            assert (seen == 1).all(), (base, m)
+            assert r0 + 8 * n * s <= chol.warp_smem_bytes(n) - 16
+
+
+@pytest.mark.parametrize("n,k", [(29, 3), (17, 2), (119, 1), (33, 2)])
+def test_warp_solve_columns_at_odd_n_are_bit_identical(n, k):
+    """Each warp of a block runs the one-vector schedule on its column:
+    the emulation column by column equals cholesky_solve_plain of the
+    (B, n, k) right-hand sides, bit for bit."""
+    M = _spd(2, n, np.float64, seed=40 + n)
+    R = cholesky_upper_plain(M)
+    b = np.random.default_rng(41).standard_normal((2, n, k))
+    want = cholesky_solve_plain(R, torch.from_numpy(b)).numpy()
+    got = np.stack([_solve_warp(R.numpy(), b[:, :, c]) for c in range(k)],
+                   -1)
+    assert np.array_equal(got, want)
 
 
 def _cuda():

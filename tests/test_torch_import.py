@@ -72,3 +72,57 @@ def test_settings_defaults_match_reference():
                                 delta=10.0, dtype="float32")
     assert dataclasses.asdict(settings_from(custom)) == \
         dataclasses.asdict(custom)
+
+
+# reference names the port does not have yet, by name (ROADMAP.md)
+PENDING = {"solve_constraint_sharded"}
+
+
+@pytest.mark.parametrize("sub", ["", ".linalg", ".solver", ".parallel"])
+def test_public_surface_matches_reference(sub):
+    """Every name of the reference package's __all__ is in the port's
+    __all__ and is an attribute of the port's package, but the pending
+    ones."""
+    import importlib
+
+    pytest.importorskip("jax")
+    ref = importlib.import_module("qpalm_tpu" + sub)
+    port = importlib.import_module("qpalm_tpu_torch" + sub)
+    missing = [n for n in ref.__all__
+               if n not in port.__all__ or not hasattr(port, n)]
+    assert set(missing) <= PENDING, missing
+    assert all(hasattr(port, n) for n in port.__all__)
+
+
+def test_top_level_constants_match_reference():
+    pytest.importorskip("jax")
+    import qpalm_tpu
+    import qpalm_tpu_torch
+
+    names = [n for n in qpalm_tpu.__all__
+             if n.startswith(("QPALM_", "FACTORIZE_"))]
+    assert len(names) == 13
+    for n in names:
+        assert getattr(qpalm_tpu_torch, n) == getattr(qpalm_tpu, n), n
+    assert qpalm_tpu_torch.QPALM_SOLVED == qpalm_tpu.QPALM_SOLVED
+
+
+def test_import_builds_nothing_and_leaves_cuda_alone():
+    """import qpalm_tpu_torch and its subpackages start no process (no
+    nvcc, no g++), load no kernel library and initialise no CUDA."""
+    code = ("import os, subprocess, torch\n"
+            "run, popen = subprocess.run, subprocess.Popen\n"
+            "def refuse(real):\n"
+            "    def f(cmd, *a, **k):\n"
+            "        prog = os.path.basename(str(cmd[0]))\n"
+            "        assert prog not in ('nvcc', 'g++', 'gcc', 'c++'), cmd\n"
+            "        return real(cmd, *a, **k)\n"
+            "    return f\n"
+            "subprocess.run, subprocess.Popen = refuse(run), refuse(popen)\n"
+            "import qpalm_tpu_torch, qpalm_tpu_torch.linalg\n"
+            "import qpalm_tpu_torch.solver, qpalm_tpu_torch.parallel\n"
+            "from qpalm_tpu_torch import _build\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "assert _build.kernels.cache_info().currsize == 0\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)

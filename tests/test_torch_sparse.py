@@ -93,7 +93,8 @@ def test_helpers_match_reference():
 
     Q, A, _, _, _ = _sparse_qp(12, 17, seed=2)
     Aj, Qj = JS.from_scipy(A, np.float64), JS.from_scipy(Q, np.float64)
-    At, Qt = TS.from_scipy(A, np.float64), TS.from_scipy(Q, np.float64)
+    At = TS.from_scipy(A, np.float64, device="cpu")
+    Qt = TS.from_scipy(Q, np.float64, device="cpu")
     assert np.array_equal(TS.row_inf_norms(At).numpy(),
                           np.asarray(JS.row_inf_norms(Aj)))
     assert np.array_equal(TS.col_inf_norms(At).numpy(),
@@ -119,8 +120,9 @@ def test_helpers_match_reference():
     Ae = sp.csr_matrix((np.array([2.0, -3.0]), (np.array([0, 2]),
                                                 np.array([0, 0]))),
                        shape=(3, 2))
-    assert TS.row_inf_norms(TS.from_scipy(Ae)).tolist() == [2.0, 0.0, 3.0]
-    assert TS.col_inf_norms(TS.from_scipy(Ae)).tolist() == [3.0, 0.0]
+    Ae = TS.from_scipy(Ae, device="cpu")
+    assert TS.row_inf_norms(Ae).tolist() == [2.0, 0.0, 3.0]
+    assert TS.col_inf_norms(Ae).tolist() == [3.0, 0.0]
 
 
 def test_matvecs_are_bit_identical():
@@ -131,10 +133,11 @@ def test_matvecs_are_bit_identical():
     A = sp.random(300, 200, density=0.1, random_state=1,
                   data_rvs=rng.standard_normal)
     v, w = rng.standard_normal(200), rng.standard_normal(300)
-    Aj, At = JS.from_scipy(A, np.float64), TS.from_scipy(A, np.float64)
+    Aj = JS.from_scipy(A, np.float64)
+    At = TS.from_scipy(A, np.float64, device="cpu")
     assert np.array_equal(At.mv(_t(v)).numpy(), np.asarray(Aj @ v))
     assert np.array_equal(At.tmv(_t(w)).numpy(), np.asarray(Aj.T @ w))
-    A32 = TS.from_scipy(A, np.float32)
+    A32 = TS.from_scipy(A, np.float32, device="cpu")
     np.testing.assert_allclose(
         A32.mv(torch.from_numpy(v.astype(np.float32))).numpy(), A @ v,
         rtol=1e-4, atol=1e-4)
@@ -159,7 +162,8 @@ def test_block_diagonals_match_reference(n, m, block):
     want = np.asarray(JS.block_diagonals(
         JS.from_scipy(Q), JS.from_scipy(A), jax.numpy.asarray(sig),
         jax.numpy.asarray(ginv), block))
-    got = TS.block_diagonals(TS.from_scipy(Q), TS.from_scipy(A), _t(sig),
+    got = TS.block_diagonals(TS.from_scipy(Q, device="cpu"),
+                             TS.from_scipy(A, device="cpu"), _t(sig),
                              _t(ginv), block)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
     dense = TS.block_diagonals_dense(
@@ -213,7 +217,7 @@ def test_pcg_matches_reference(precond):
 
     Q, A, sig, ginv, block, b = _pcg_problem()
     Qj, Aj = JS.from_scipy(Q), JS.from_scipy(A)
-    Qt, At = TS.from_scipy(Q), TS.from_scipy(A)
+    Qt, At = TS.from_scipy(Q, device="cpu"), TS.from_scipy(A, device="cpu")
 
     def jmv(v):
         return Qj @ v + Aj.T @ (jnp.asarray(sig) * (Aj @ v)) + ginv * v
@@ -258,7 +262,7 @@ def test_pcg_freezes_finished_lanes():
     """A lane that meets its threshold stops; the others run to theirs, or
     to max_iter."""
     Q, A, sig, ginv, _, b = _pcg_problem()
-    Qt, At = TS.from_scipy(Q), TS.from_scipy(A)
+    Qt, At = TS.from_scipy(Q, device="cpu"), TS.from_scipy(A, device="cpu")
 
     def tmv(V):
         return torch.stack([Qt.mv(v) + At.tmv(_t(sig) * At.mv(v)) + v * ginv

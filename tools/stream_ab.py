@@ -2,7 +2,8 @@
 the card.
 
     python tools/stream_ab.py [--tier stream|smem]
-                              [--kernel k1|chol|chol_solve|chol_wide|general]
+                              [--kernel k1|chol|chol_solve|chol_solve_stage|
+                                        chol_wide|general]
                               [DIR ...]
 
 Each DIR holds a `qpalm_tpu_torch` package (default: this checkout's).
@@ -33,6 +34,12 @@ the global plan (`chol_solve_global_kernel`) on the factors of the SPD
 batch below: one vector a matrix at (64, 480) in f32 and f64, as the
 general loop solves randomQP n=480, and the identity at f32 (64, 480,
 480), as the device polish calls it there.
+`--kernel chol_solve_stage`: K2b at f64 at chip_smoke.py phase 18's
+stage shapes, (B, nb, k) = (1, 119, 1), (1, 119, 119), (8, 119, 119),
+(8, 119, 239), (1, 29, 1), (1, 29, 29) (one vector for k = 1, as block
+Thomas passes it), on G G' + nb I from `default_rng(18)`, each the mean of
+20 launches queued as above, with a hash of its output (since PR 16 the
+warp solve; before it PR 6's entry plan).
 `--kernel chol`: K2a (`linalg.chol.cholesky_upper`) on phase 3's batch,
 and the cluster factor at (64, 480, 480) in f32 and f64 on an SPD batch
 from `default_rng(1)`, timed the same way.
@@ -151,6 +158,18 @@ if sys.argv[2] in ("chol", "chol_solve"):
                                                            480).contiguous()
                 runs["float32 (64, 480, 480) identity"] = queued(
                     lambda: chol.cholesky_solve(Rw, eye))
+elif sys.argv[2] == "chol_solve_stage":
+    from qpalm_tpu_torch.linalg import chol
+    rng = np.random.default_rng(18)
+    for B, nb, k in ((1, 119, 1), (1, 119, 119), (8, 119, 119),
+                     (8, 119, 239), (1, 29, 1), (1, 29, 29)):
+        G = rng.standard_normal((B, nb, nb))
+        Rs = chol.cholesky_upper(torch.from_numpy(
+            G @ np.transpose(G, (0, 2, 1)) + nb * np.eye(nb)).cuda())
+        bs = torch.from_numpy(rng.standard_normal(
+            (B, nb) if k == 1 else (B, nb, k))).cuda()
+        runs[f"float64 ({B}, {nb}, {k})"] = queued(
+            lambda: chol.cholesky_solve(Rs, bs), 20)
 elif sys.argv[2] == "chol_wide":
     from qpalm_tpu_torch.linalg import chol
     for n, dt in ((14536, torch.float64), (16392, torch.float32)):
@@ -223,7 +242,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tier", choices=("stream", "smem"), default="stream")
     ap.add_argument("--kernel", choices=("k1", "chol", "chol_solve",
-                                         "chol_wide", "general"),
+                                         "chol_solve_stage", "chol_wide",
+                                         "general"),
                     default="k1")
     ap.add_argument("dirs", nargs="*")
     args = ap.parse_args(argv)
