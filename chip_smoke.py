@@ -182,7 +182,23 @@ Phases, each asserting, any failure exiting non-zero:
      shapes, the warp solve's under PR 15's names (chol_solve_f64_*).
      Before it, every f64 warp-solve shape phases 3-17 launched
      (chol.KERNEL_SHAPES since the start) is held bit for bit to the
-     twin.
+     twin;
+ 19. constraint sharding (parallel/schur.py): solve_constraint_sharded on
+     randomQP n=512 m=8192 (seed 0, f64, eps 1e-6, SCHUR) over
+     LocalMesh(1), LocalMesh(4) and LocalMesh(8), against the unsharded
+     api.solve of the same problem: every run solved, iteration counts
+     within CS_ITER_SPREAD of the unsharded, x within CS_X_BAR, the host f64
+     referee within eps; walls, ms an iteration, K2 launches by shape and
+     K2's share; every K2 shape the phase launched held bit for bit to its
+     twin and timed beside the library (the kernels line's rows _schur_*);
+     then K2b's entry plan at f32 (chol_solve_kernel<float>, (512, 61), one
+     vector), which no path reaches, bit for bit against its twin and timed
+     beside torch.cholesky_solve and its bound, printed on a line of its own.
+  The host polish's native Bunch-Kaufman library (libqpalm_ldl) is
+  required before phases 11 and 16 (d), so that no measured polish falls
+  back to LU; phase 16 (d) prints the polish's route and splits t_polish_s
+  into the polish and the finisher; phase 11 prints each row's C baseline
+  (sweep.baseline_column) on a line before its row.
 
 It prints a JSON line of the kernels' numbers, the nvidia-smi line, and as
 its last line {"ok": true, "device": {...}} only when every phase passed.
@@ -318,6 +334,21 @@ ST_CHAIN, ST_MESH, ST_ITER_SPREAD = (40, 256), 8, 3
 ST_SPIKE = (48, 29, 3)
 ST_DIST_HORIZON = 32
 ST_DP = (64, 64)
+# phase 19: one randomQP (CS_QP = (n, m), seed 0, A 33.5 MB at f64) with its
+# constraint rows split over LocalMesh(k) for k in CS_MESHES, against the
+# unsharded api.solve (SCHUR) of the same problem, at eps 1e-6: iteration
+# counts within CS_ITER_SPREAD (the shards' partial sums add in another
+# order; on the CPU LocalMesh(1) is bit-identical to the unsharded solve
+# and the counts are equal), x within CS_X_BAR of the unsharded x, relative
+# to max(1, |x|)
+CS_QP = (512, 8192)
+CS_MESHES = (1, 4, 8)
+CS_ITER_SPREAD = 2
+CS_X_BAR = 1e-6
+# K2b's entry plan at f32 (chol_solve_kernel<float>: n not a multiple of 8),
+# which no path of phases 3-19 reaches (their n are padded to multiples of
+# 8), timed at (B, n) one vector
+ENTRY_F32 = (512, 61)
 
 
 def bound(flops, nbytes, peak=F32_PEAK):
@@ -814,9 +845,11 @@ def phase_sweep(dev):
     streaming launches of the whole sweep."""
     import torch
 
-    from qpalm_tpu_torch import sweep
+    from qpalm_tpu_torch import polish, sweep
     from qpalm_tpu_torch.solver import fused as F
 
+    require(polish._bkkt_lib() is not None, "the host polish's native "
+            "Bunch-Kaufman library (libqpalm_ldl) does not load")
     rows = []
     torch.cuda.synchronize()
     F.fused_palm.launches = F.fused_palm.stream_launches = 0
@@ -828,6 +861,10 @@ def phase_sweep(dev):
         row["stream_launches"] = F.fused_palm.stream_launches - before[1]
         rows.append(row)
         label = f"{family} {row['size']} B={row['batch']}"
+        say(f"[sweep C baseline] {label}: {row['baseline_solves_per_s']:.1f} "
+            f"solves/s on {row['baseline_sample']} problems (solved "
+            f"{row['baseline_solved']}), the row {row['solves_per_s']:.1f} "
+            f"solves/s: {row['speedup']:.2f}x")
         kb = k1_bound(row["batch"], row["n_pad"], row["m_pad"],
                       row["mean_iterations"] * row["batch"])
         say(f"[sweep] {label} ({row['n_pad']}x{row['m_pad']}, {row['tier']}): "
@@ -1619,20 +1656,30 @@ def fe_large(dev, rows, rows_cols):
     polish) and n=512 (device polish), every lane certified and refereed."""
     import numpy as np
 
-    from qpalm_tpu_torch import referee
+    from qpalm_tpu_torch import polish, referee
     from qpalm_tpu_torch.batch import stack_problems
     from qpalm_tpu_torch.large import solve_large_dense
     from qpalm_tpu_torch.types import QPData
     from qpalm_tpu_torch.workloads import random_qp
 
+    require(polish._bkkt_lib() is not None, "the host polish's native "
+            "Bunch-Kaufman library (libqpalm_ldl) does not load")
     out = {}
     for (n, m), polish_on_card, want in ((FE_LARGE, False, rows),
                                          (FE_LARGE_POLISH, True, rows_cols)):
         probs = [random_qp(n, m, density=0.15, seed=s)
                  for s in range(FE_LARGE_B)]
-        r, wall, la = counted(lambda: solve_large_dense(
-            probs, eps=EPS_TARGET, device_polish=polish_on_card,
-            device=dev))
+        with host_split() as split:
+            r, wall, la = counted(lambda: solve_large_dense(
+                probs, eps=EPS_TARGET, device_polish=polish_on_card,
+                device=dev))
+        say(f"[front end (d) n={n}] t_polish_s {r.t_polish_s:.3f} = the "
+            f"host polish {split['polish_batch_np']:.3f} s "
+            f"({split['calls_polish_batch_np']} calls, route "
+            f"{split['route']}) + the finisher "
+            f"{split['palm_finish_np']:.3f} s "
+            f"({split['calls_palm_finish_np']} calls) + the rest "
+            f"{r.t_polish_s - split['polish_batch_np'] - split['palm_finish_np']:.3f} s")
         d64 = QPData(*(a.numpy() for a in stack_problems(probs,
                                                          np.float64)))
         v = referee.check(*d64, r.x, r.y, EPS_TARGET, EPS_TARGET)[0]
@@ -1652,6 +1699,43 @@ def fe_large(dev, rows, rows_cols):
                     f"launched: {la}")
         out[polish_on_card] = la
     return out[False], out[True]
+
+
+class host_split:
+    """Times the host polish (polish.polish_batch_np) and the finisher
+    (finish_np.palm_finish_np) inside a `with` block: seconds and calls of
+    each under their names, and the polish's route ("native BK" or "LU",
+    polish._bkkt_lib).  large.py imports both at each call, so the wrappers
+    stand in for them only inside the block."""
+
+    def __enter__(self):
+        from qpalm_tpu_torch import finish_np, polish
+
+        self.split = {"route": "native BK" if polish._bkkt_lib() is not None
+                      else "LU"}
+        self.saved = []
+        for mod, name in ((polish, "polish_batch_np"),
+                          (finish_np, "palm_finish_np")):
+            fn = getattr(mod, name)
+            self.split[name] = 0.0
+            self.split["calls_" + name] = 0
+
+            def timed_fn(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.split[_name] += time.perf_counter() - t0
+                    self.split["calls_" + _name] += 1
+
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, timed_fn)
+        return self.split
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
 
 
 def fe_diff(dev):
@@ -2513,6 +2597,121 @@ def hold_warp_shapes(dev, rng, shapes):
     return held
 
 
+def phase_constraint_sharded(dev):
+    """Phase 19: constraint sharding on the card.  Returns (numbers,
+    launches) of the kernels line's rows _schur_*: K2 at every shape the
+    phase's sharded runs launched, with their launches."""
+    import numpy as np
+
+    from qpalm_tpu_torch import api, referee
+    from qpalm_tpu_torch import constants as C
+    from qpalm_tpu_torch.parallel import LocalMesh, solve_constraint_sharded
+    from qpalm_tpu_torch.types import Settings
+    from qpalm_tpu_torch.workloads import random_qp
+
+    t = [time.perf_counter()]
+    n, m = CS_QP
+    p = tuple(np.asarray(a, np.float64) for a in random_qp(n, m, seed=0))
+    s = Settings(eps_abs=EPS_TARGET, eps_rel=EPS_TARGET,
+                 factorization_method=C.FACTORIZE_SCHUR, verbose=False)
+    r, wall, _, sh = stage_counted(lambda: api.solve(*p, settings=s,
+                                                     device=dev))
+    require(r.info.status == "solved", f"constraint sharding: the unsharded "
+            f"solve {r.info.status}")
+    x0, it0 = np.asarray(r.solution.x), int(r.info.iter)
+    runs = {"unsharded": (wall, it0, sh)}
+    every = dict(sh)
+    for k in CS_MESHES:
+        mesh = LocalMesh(k, device=dev)
+        (x, y, st, it, obj), wall, _, sh = stage_counted(
+            lambda: solve_constraint_sharded(p + (np.zeros(()),), s, mesh))
+        x, y, it = x.cpu().numpy(), y.cpu().numpy(), int(it)
+        v = referee.check(*(a[None] for a in p), np.zeros(1), x[None],
+                          y[None], EPS_TARGET, EPS_TARGET)[0][0]
+        dx = np.abs(x - x0).max() / max(1.0, np.abs(x0).max())
+        say(f"[constraint sharding] LocalMesh({k}): status {int(st)}, "
+            f"{it} iterations (unsharded {it0}), |dx| {dx:.3e} of the "
+            f"unsharded x, referee violation {v:.3e}, objective "
+            f"{float(obj):.10e}")
+        require(int(st) == C.QPALM_SOLVED, f"LocalMesh({k}): status "
+                f"{int(st)}")
+        require(abs(it - it0) <= CS_ITER_SPREAD, f"LocalMesh({k}): {it} "
+                f"iterations against {it0} unsharded")
+        require(dx <= CS_X_BAR, f"LocalMesh({k}): |dx| {dx:.3e}")
+        require(v <= 1.0, f"LocalMesh({k}): referee violation {v:.3e}")
+        runs[f"LocalMesh({k})"] = (wall, it, sh)
+        for key, c in sh.items():
+            every[key] = every.get(key, 0) + c
+    t.append(time.perf_counter())
+    rows = k2_shape_rows(dev, np.random.default_rng(190), every)
+    t.append(time.perf_counter())
+    for label, (wall, it, sh) in runs.items():
+        share = stage_share(sh, rows)
+        say(f"[constraint sharding] {label}: {wall:.3f} s, {it} iterations, "
+            f"{1e3 * wall / max(it, 1):.2f} ms an iteration; K2 "
+            f"{share:.3f} s ({100 * share / wall:.1f}%), launches by shape "
+            + ", ".join(f"{k[0]} ({k[1]}, {k[2]}"
+                        + ("" if k[3] is None else f", k={k[3]}") + f") {c}"
+                        for k, c in sorted(sh.items(), key=str)))
+    numbers, launches = {}, {}
+    sharded = {}
+    for label, (_, _, sh) in runs.items():
+        if label != "unsharded":
+            for key, c in sh.items():
+                sharded[key] = sharded.get(key, 0) + c
+    for key, count in sharded.items():
+        name, B, nn, k = key
+        row = f"{name}_schur_{B}x{nn}" + ("" if k is None else f"x{k}")
+        numbers[row] = rows[key]
+        launches[row] = count
+    require(numbers, "constraint sharding launched no K2 kernel")
+    say("[time] phase 19 " + ", ".join(
+        f"({part}) {b - a:.1f} s" for part, a, b in zip(
+            ("solves", "K2 rows"), t, t[1:]))
+        + f", in all {t[-1] - t[0]:.1f} s")
+    return numbers, launches
+
+
+def entry_f32_row(dev):
+    """K2b's entry plan at f32 (chol_solve_kernel<float>) at ENTRY_F32, one
+    vector: through chol.cholesky_solve (qp_chol_solve, kind 0), bit for
+    bit against its twin, timed beside the twin, torch.cholesky_solve and
+    its bound.  Returns its row."""
+    import numpy as np
+    import torch
+
+    from qpalm_tpu_torch.linalg import chol
+
+    B, n = ENTRY_F32
+    require(chol.solve_plan(B, n, 1, torch.float32)[0] == "entry",
+            f"f32 ({B}, {n}) is not the entry plan")
+    rng = np.random.default_rng(61)
+    R = chol.cholesky_upper(spd(rng, B, n, "float32", dev))
+    b = torch.from_numpy(rng.standard_normal((B, n)).astype(np.float32)) \
+        .to(dev)
+    chol.KERNEL_SHAPES.clear()
+    x = chol.cholesky_solve(R, b)
+    xp = chol.cholesky_solve_plain(R, b)
+    torch.cuda.synchronize()
+    require(dict(chol.KERNEL_SHAPES) == {("chol_solve", B, n, 1): 1},
+            f"entry f32: counted {dict(chol.KERNEL_SHAPES)}")
+    require(torch.equal(x, xp), f"entry f32 ({B}, {n}): solve vs plain, "
+            f"{int((x != xp).sum())} entries differ")
+    row = dict(max_abs_err=0.0, ms=cuda_ms(lambda: chol.cholesky_solve(R, b),
+                                           20),
+               plain_ms=cuda_ms(lambda: chol.cholesky_solve_plain(R, b), 1),
+               library_ms=cuda_ms(lambda: torch.cholesky_solve(
+                   b[..., None], R, upper=True), 20),
+               **bound(2 * B * n * n, 4 * B * (n * n + 2 * n), F32_PEAK))
+    say(f"[K2b entry f32 ({B}, {n}), one vector] chol_solve_kernel<float> "
+        f"bit-identical to the twin; {row['ms']:.4f} ms (bound "
+        f"{row['bound_ms']:.4f}, {row['bound_by']}; plain "
+        f"{row['plain_ms']:.2f}; torch.cholesky_solve "
+        f"{row['library_ms']:.4f}); launches on phases 3-19's paths: none "
+        f"(their n are multiples of 8)")
+    return row
+
+
 def phase_stage(dev):
     """Phase 18: the stage-structured path on the card.  Returns (numbers,
     launches) of the kernels line's rows: K2 at (a)'s STAGE shapes and at
@@ -2899,6 +3098,12 @@ def main():
     numbers.update(st_numbers)
     launches.update(st_launches)
 
+    # ---- 19. constraint sharding; K2b's entry plan at f32 ----
+    cs_numbers, cs_launches = phase_constraint_sharded(dev)
+    numbers.update(cs_numbers)
+    launches.update(cs_launches)
+    entry_f32_row(dev)
+
     csrc = "qpalm_tpu_torch/csrc/"
     table = [
         ("fused_palm", "fused_palm", csrc + "fused_palm.cu",
@@ -2934,7 +3139,7 @@ def main():
         *((name, name, csrc + "chol.cu",
            "qpalm_tpu/linalg/pallas_chol.py:"
            + ("123" if name.startswith("chol_solve") else "98"))
-          for name in sorted(st_numbers)),
+          for name in sorted(st_numbers) + sorted(cs_numbers)),
     ]
     kernels_line = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -3,8 +3,8 @@ H100.
 
 The port mirrors qpalm_tpu's module paths and names, so each module has a
 counterpart in the JAX package that it is held against in the tests.  It
-imports torch and numpy, never jax and never qpalm_tpu.  Eight paths are
-ported so far.  The certified batched pipeline of bench.py:
+imports torch and numpy, never jax and never qpalm_tpu.  Every path of
+the JAX package is ported.  The certified batched pipeline of bench.py:
 
     batch.stack_problems -> scaling.scale_data -> solver.fused (kernel K1)
     -> polish_device.polish_batch (kernel K2) -> bench.rescue_round (the
@@ -79,11 +79,21 @@ processes:
     (block Thomas a shard, K2; the interface by cyclic reduction)
     parallel.solve_batch_sharded -> core.full_solve a shard
 
+and one QP with its constraint rows split over a mesh:
+
+    parallel.solve_constraint_sharded -> core.setup on the whole problem,
+    its m-sized data and state split by rows (parallel.schur.RowSharded)
+    -> core.solve_from_state (A'y and the Schur matrix a psum, the m-sized
+    norms a pmax, the linesearch's breakpoints gathered; SCHUR on K2)
+
+The reference's benchmark scripts and examples run on the port as
+`python -m qpalm_tpu_torch.scripts.<name>` and
+`python -m qpalm_tpu_torch.examples.<name>`.
+
 Every Pallas kernel of the repository is a CUDA C++ kernel here (csrc/),
 built by nvcc at first use (_build.py); probe.py holds the streaming
 tier's memory-plan probes.  A CPU tensor runs each kernel's plain PyTorch
-twin instead; a CUDA tensor runs the kernel or raises.  Not ported yet:
-the reference's constraint sharding (parallel/schur.py).  The native
+twin instead; a CUDA tensor runs the kernel or raises.  The native
 libraries (the C baseline solvers, the sparse LDL' backend and the QPS
 reader) are built by g++ from native/ at first use (_build.py).
 

@@ -1,7 +1,7 @@
 """The multi-process dry run (counterpart of __graft_entry__.
 dryrun_multichip's parallel parts and scripts/multihost_dryrun.py):
-data-parallel batches, SPIKE and the stage-sharded P-ALM loop over k
-processes of `torch.distributed` (gloo on the CPU), each result held bit
+data-parallel batches, SPIKE, the stage-sharded P-ALM loop and the
+constraint-sharded solve over k processes of `torch.distributed` (gloo on the CPU), each result held bit
 for bit against the same run on `LocalMesh(k)`.
 
     from qpalm_tpu_torch.parallel.dryrun import dryrun_processes
@@ -28,6 +28,7 @@ from ..types import Settings
 from .block_tridiag import spike_solve, thomas_solve
 from .mesh import DistMesh, LocalMesh
 from .mpc_loop import mpc_chain_stage_data, solve_mpc_stage_sharded
+from .schur import solve_constraint_sharded
 from .sharded import solve_batch_sharded
 
 __all__ = ["dryrun", "dryrun_processes", "compare"]
@@ -59,7 +60,7 @@ def _block_tridiag(S, nb, seed):
 
 
 def dryrun(mesh) -> dict:
-    """Run the three parallel paths on `mesh` at a size of two lanes or
+    """Run the four parallel paths on `mesh` at a size of two lanes or
     stages a shard, checking each; returns this process's results as numpy,
     the keys of sharded results starting with "sharded_" (the whole of
     each on a LocalMesh, the rank's part on a DistMesh)."""
@@ -103,6 +104,17 @@ def dryrun(mesh) -> dict:
         out[f"sharded_mpc_{f}"] = getattr(r, f).cpu().numpy()
     for f in ("status", "iterations", "pri_res_norm", "dua_res_norm"):
         out[f"mpc_{f}"] = getattr(r, f).cpu().numpy()
+
+    # one QP with its constraint rows sharded, 4 rows a shard
+    Q, A, q, lo, hi = _tiny_batch(1, 6, 4 * k, seed=3)[0]
+    x, y, status, iters, obj = solve_constraint_sharded(
+        (Q, A, q, lo, hi, np.zeros(())), s, mesh)
+    if int(status) != 1:
+        raise AssertionError(f"constraint-sharded dry run: status "
+                             f"{int(status)}")
+    for f, v in (("x", x), ("y", y), ("iterations", iters),
+                 ("objective", obj)):
+        out[f"schur_{f}"] = v.cpu().numpy()
     return out
 
 

@@ -14,16 +14,21 @@ and runs the full unscaled KKT check (primal feasibility, stationarity,
 complementarity sign) at the target eps.  A lane whose check fails is
 reported not ok; the caller retries it or hands it to finish_np.
 
-The numerics are numpy only.  `compress=True` solves the active-rows-only
-system by numpy's batched LU here: the reference's native Bunch-Kaufman
-path (native/batch_kkt.cpp) and its `precision="mixed"` are not copied yet
-(ROADMAP.md, section 1 item 2), so this copy is slower than the
-reference's at large n.  With `compress=False` it is the reference's
-full-system path operation for operation.
+`compress=True` (the default) solves the active-rows-only system by the
+native batched Bunch-Kaufman factor (dsytrf/dsytrs, native/batch_kkt.cpp
+in libqpalm_ldl, linalg/sparse_direct.py) whenever that library loads, as
+the reference does: half the operations of an LU on these symmetric
+systems, and the factor is reused by the refinement's re-solves.  Lanes
+the factor cannot serve fall back to numpy's LU on a rebuilt K;
+`precision="mixed"` factors in float32 and refines in float64.  Without
+the library it solves by numpy's batched LU (qpalm_tpu/polish.py:381).
+With `compress=False` it is the reference's full-system path operation
+for operation, numpy LU included.
 """
 
 from __future__ import annotations
 
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
@@ -42,6 +47,46 @@ class PolishResult(NamedTuple):
 
 
 _DELTA_REG = 1e-9  # KKT regularization; removed by iterative refinement
+
+# Per-thread reusable K buffers: the bench calls the polish once a round
+# with the same shapes, and a fresh np.zeros of a large stack costs its
+# page faults every time.  Keyed by (shape, dtype); only the last buffer
+# of each thread is kept (qpalm_tpu/polish.py:54-84).
+_kbuf_local = threading.local()
+
+
+def _get_kbuf(shape, dtype):
+    """Uninitialized per-thread buffer; the caller writes every element
+    (build_K does).  Reused across calls of the same shape."""
+    cached = getattr(_kbuf_local, "buf", None)
+    if cached is not None and cached.shape == shape and cached.dtype == dtype:
+        return cached
+    buf = np.empty(shape, dtype)
+    _kbuf_local.buf = buf
+    return buf
+
+
+def _get_kf_buf(shape):
+    """Per-thread float32 factor workspace of the mixed-precision path (the
+    native factor writes every element)."""
+    cached = getattr(_kbuf_local, "fbuf", None)
+    if cached is not None and cached.shape == shape:
+        return cached
+    buf = np.empty(shape, np.float32)
+    _kbuf_local.fbuf = buf
+    return buf
+
+
+def _bkkt_lib():
+    """The native batched symmetric-indefinite solver (Bunch-Kaufman
+    dsytrf/dsytrs, native/batch_kkt.cpp) of the port's libqpalm_ldl, or
+    None when that library does not build or load (qpalm_tpu/polish.py:
+    87-96)."""
+    from .linalg.sparse_direct import load_library
+
+    lib = load_library()
+    return lib if lib is not None and hasattr(lib, "bkkt_factor_solve") \
+        else None
 
 
 def _np_solve_or_nan(K, rhs):
@@ -74,8 +119,8 @@ def _np_solve_or_nan(K, rhs):
 
 def _np_polish_chunk(Q, A, q, bmin, bmax, c, x0, y0,
                      eps_abs, eps_rel, act_tol, rounds, refine_steps,
-                     compress=True):
-    """Polish a (B, ...) chunk in numpy (qpalm_tpu/polish.py:298-509).
+                     compress=True, precision="f64"):
+    """Polish a (B, ...) chunk (qpalm_tpu/polish.py:298-509).
 
     `compress=True` solves the KKT system with the inactive rows removed
     (a symmetric permutation that moves each lane's active rows first,
@@ -132,22 +177,98 @@ def _np_polish_chunk(Q, A, q, bmin, bmax, c, x0, y0,
         wc = sel if compress else act
         Aact = Asub * wc[:, :, None].astype(Q.dtype)
         nk = n + mc
-        K = np.empty((B, nk, nk), Q.dtype)
-        K[:, :n, :n] = Q
-        K[:, :n, n:] = Aact.transpose(0, 2, 1)
-        K[:, n:, :n] = Aact
-        K22 = K[:, n:, n:]
-        K22[...] = 0.0
-        dix = np.arange(mc)
-        K22[:, dix, dix] = np.where(wc, -_DELTA_REG, 1.0)
+
+        def build_K(fresh=False):
+            # every element of K is written, so the reusable buffer can be
+            # handed out uninitialized; `fresh` allocates a new one, for
+            # the failed lanes' rebuild after the factor overwrote the
+            # shared buffer (the healthy lanes' factors must survive for
+            # the refinement's re-solves)
+            K = (np.empty((B, nk, nk), Q.dtype) if fresh
+                 else _get_kbuf((B, nk, nk), Q.dtype))
+            K[:, :n, :n] = Q
+            K[:, :n, n:] = Aact.transpose(0, 2, 1)
+            K[:, n:, :n] = Aact
+            K22 = K[:, n:, n:]
+            K22[...] = 0.0
+            dix = np.arange(mc)
+            K22[:, dix, dix] = np.where(wc, -_DELTA_REG, 1.0)
+            return K
+
+        K = build_K()
         rhs = np.concatenate([-q, np.where(wc, bsub, 0.0)], axis=1)
-        sol = _np_solve_or_nan(K, rhs[:, :, None])[:, :, 0]
+        # the native Bunch-Kaufman path, compress only: compress=False
+        # stays the operation-for-operation twin of the full-system polish
+        lib = _bkkt_lib() if compress else None
+        sol = resolve = None
+        if (lib is not None and precision == "mixed"
+                and hasattr(lib, "bkkt_factor_solve_f32")):
+            # a float32 factor (half the operations and traffic) and float64
+            # refinement against the unregularized system: pass
+            # refine_steps >= 2.  K survives (the factor lives in the f32
+            # workspace), so the lanes it fails solve on K itself; the KKT
+            # check gates every lane as at f64
+            Kf = _get_kf_buf((B, nk, nk))
+            ipiv = np.empty((B, nk), np.int32)
+            failv = np.empty(B, np.int32)
+            sol_m = rhs.copy()
+            nf = lib.bkkt_factor_solve_f32(B, nk, K, Kf, ipiv, sol_m, failv)
+            if 0 <= nf < B:
+                bad = np.where(failv.astype(bool))[0]
+                if len(bad):
+                    sol_m[bad] = _np_solve_or_nan(
+                        K[bad], rhs[bad, :, None])[:, :, 0]
+                sol = sol_m
+
+                def resolve(r):
+                    rc = np.ascontiguousarray(r)
+                    if lib.bkkt_resolve_f32(B, nk, Kf, ipiv, rc, failv) != 0:
+                        return np.zeros_like(rc)
+                    if len(bad):
+                        rc[bad] = _np_solve_or_nan(
+                            K[bad], r[bad, :, None])[:, :, 0]
+                    return rc
+        if lib is not None and sol is None:
+            ipiv = np.empty((B, nk), np.int32)
+            failv = np.empty(B, np.int32)
+            sol_n = rhs.copy()
+            nf = lib.bkkt_factor_solve(B, nk, K, ipiv, sol_n, failv)
+            if 0 <= nf < B:
+                bad = np.where(failv.astype(bool))[0]
+                if len(bad):
+                    # the factor overwrote the failed lanes' K: rebuild
+                    # those and solve them by LU; the healthy lanes keep
+                    # their factors
+                    K_bad = build_K(fresh=True)[bad]
+                    sol_n[bad] = _np_solve_or_nan(
+                        K_bad, rhs[bad, :, None])[:, :, 0]
+                sol = sol_n
+
+                def resolve(r):
+                    rc = np.ascontiguousarray(r)
+                    if lib.bkkt_resolve(B, nk, K, ipiv, rc, failv) != 0:
+                        # skip the correction; the KKT check still gates
+                        # the result
+                        return np.zeros_like(rc)
+                    if len(bad):
+                        rc[bad] = _np_solve_or_nan(
+                            K_bad, r[bad, :, None])[:, :, 0]
+                    return rc
+            else:
+                # a native error (nf < 0) or every lane failed: K was
+                # overwritten, rebuild it and take the LU path
+                K = build_K()
+        if sol is None:
+            sol = _np_solve_or_nan(K, rhs[:, :, None])[:, :, 0]
+
+            def resolve(r):
+                return _np_solve_or_nan(K, r[:, :, None])[:, :, 0]
         for _ in range(refine_steps):
             sx, sn = sol[:, :n], sol[:, n:]
             top = _mv(Q, sx) + _vm(sn, Aact)
             bot = _mv(Aact, sx) + np.where(wc, 0.0, sn)
             r = rhs - np.concatenate([top, bot], axis=1)
-            sol = sol + _np_solve_or_nan(K, r[:, :, None])[:, :, 0]
+            sol = sol + resolve(r)
         x = sol[:, :n]
         if compress:
             y = np.zeros((B, m), Q.dtype)
@@ -216,6 +337,7 @@ def polish_batch_np(
     refine_steps: int = 2,
     threads: int = 4,
     compress: bool = True,
+    precision: str = "f64",
 ) -> PolishResult:
     """Polish a stacked batch of f32 solutions to (eps_abs, eps_rel) in f64
     on the host (qpalm_tpu/polish.py:512-576, same contract).
@@ -224,9 +346,12 @@ def polish_batch_np(
     first, as numpy arrays or CPU tensors; `x`/`y` are the f32 pass's
     solutions.  The batch is cut into `threads` chunks polished in a thread
     pool (LAPACK releases the GIL), each with one BLAS thread.
-    `compress=False` solves the full (n+m) KKT system; the default solves
-    the compacted active-rows-only system, the same solution in exact
-    arithmetic with another LU rounding path."""
+    `compress=False` solves the full (n+m) KKT system by LU; the default
+    solves the compacted active-rows-only system, the same solution in
+    exact arithmetic, by the native Bunch-Kaufman factor where the library
+    loads.  `precision="mixed"` factors it in float32 and recovers float64
+    accuracy by `refine_steps` (>= 2) rounds of float64 refinement; the KKT
+    check gates every lane as at "f64"."""
     Q, A, q, bmin, bmax, c = (np.asarray(a, np.float64) for a in (
         data.Q, data.A, data.q, data.bmin, data.bmax, data.c))
     x0 = np.asarray(x, np.float64)
@@ -236,7 +361,7 @@ def polish_batch_np(
     bounds = np.linspace(0, B, nch + 1).astype(int)
     args = [(Q[a:b], A[a:b], q[a:b], bmin[a:b], bmax[a:b], c[a:b],
              x0[a:b], y0[a:b], eps_abs, eps_rel, act_tol, rounds,
-             refine_steps, compress)
+             refine_steps, compress, precision)
             for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
     # one BLAS thread per chunk: the chunks already use the cores, and the
     # per-lane LAPACK calls are too small for threaded BLAS
@@ -249,7 +374,18 @@ def polish_batch_np(
         if len(args) == 1:
             parts = [_np_polish_chunk(*args[0])]
         else:
-            with ThreadPoolExecutor(max_workers=len(args)) as pool:
-                parts = list(pool.map(lambda t: _np_polish_chunk(*t), args))
+            parts = list(_polish_pool().map(
+                lambda t: _np_polish_chunk(*t), args))
     return PolishResult(*(np.concatenate([getattr(p, f) for p in parts])
                           for f in PolishResult._fields))
+
+
+_pool_holder = []
+
+
+def _polish_pool():
+    """The persistent worker pool: a fresh pool a call costs its start and
+    loses the per-thread K buffers (qpalm_tpu/polish.py:582-587)."""
+    if not _pool_holder:
+        _pool_holder.append(ThreadPoolExecutor(max_workers=8))
+    return _pool_holder[0]

@@ -26,7 +26,15 @@ FACTORIZE_CG solves the Newton system matrix-free with preconditioned CG
 (linalg/cg.py), Jacobi or block-Jacobi (the blocks factored and solved by
 K2), on dense batches and on the sparse problem of `api.QPALM(sparse=
 True)` (linalg.sparse.SparseMatrix Q and A, a batch of one; `_mv` and
-`_mtv` are the one place that tells the two apart).  FACTORIZE_STAGE
+`_mtv` are the one place that tells the two apart).  A row-sharded A is
+told apart the same way (parallel/schur.py, `solve_constraint_sharded`):
+one problem whose constraint rows are split over a mesh, the shards the
+leading dimension of every m-sized tensor while the n-sized ones and the
+scalars are the problem's own, a batch of one.  `_mv` is then local,
+`_mtv` and the Schur assembly a `psum` over the mesh, the m-sized norms,
+sums and counts (`_mnorm`, `_msum`, `_many`) a `pmax` or `psum` of the
+shards' partial values, and the linesearch gathers its 2m breakpoints;
+`_mesh` tells the two apart.  FACTORIZE_STAGE
 assembles M as SCHUR does and solves it by block Thomas on its stage
 blocks (parallel/block_tridiag.py, K2 a stage), refactored every
 iteration and never refined, as the reference does.
@@ -60,20 +68,56 @@ def _one(v):
     return v[0]
 
 
+def _mesh(M):
+    """The mesh a row-sharded matrix (parallel.schur.RowSharded) is split
+    over; None for a tensor or a SparseMatrix."""
+    return getattr(M, "mesh", None)
+
+
 def _mv(M, v):
-    """Batched matrix-vector product M v: (B, r, c) x (B, c) -> (B, r), or
-    a SparseMatrix (r, c) times (1, c)."""
+    """Batched matrix-vector product M v: (B, r, c) x (B, c) -> (B, r), a
+    SparseMatrix (r, c) times (1, c), or a row-sharded M's local rows
+    times (1, c): (L, r_loc)."""
     if S.is_sparse(M):
         return M.mv(_one(v))[None]
+    if _mesh(M) is not None:
+        return M.mv(v)
     return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
 
 
 def _mtv(M, v):
-    """Batched M' v: (B, r, c) x (B, r) -> (B, c), or a SparseMatrix's
-    transpose times (1, r)."""
+    """Batched M' v: (B, r, c) x (B, r) -> (B, c), a SparseMatrix's
+    transpose times (1, r), or a row-sharded M's: the psum of the shards'
+    local products, (1, c)."""
     if S.is_sparse(M):
         return M.tmv(_one(v))[None]
+    if _mesh(M) is not None:
+        return M.tmv(v)
     return torch.matmul(M.transpose(-1, -2), v.unsqueeze(-1)).squeeze(-1)
+
+
+def _mnorm(v, A):
+    """Inf-norm over the constraint dimension of an m-sized v: (B,); with
+    A's rows sharded, the pmax of the shards' norms."""
+    r = norm_inf(v)
+    mesh = _mesh(A)
+    return r if mesh is None else mesh.pmax(r)[:1]
+
+
+def _msum(v, A, dtype=None):
+    """Sum over the constraint dimension: (B,); with A's rows sharded, the
+    psum of the shards' sums."""
+    r = v.sum(-1, dtype=dtype)
+    mesh = _mesh(A)
+    return r if mesh is None else mesh.psum(r)[:1]
+
+
+def _many(mask, A):
+    """Any over the constraint dimension: (B,) bool; with A's rows
+    sharded, over every shard."""
+    r = mask.any(-1)
+    mesh = _mesh(A)
+    return r if mesh is None else mesh.pmax(r.to(_I32))[:1] > 0
 
 
 def _dot(a, b):
@@ -234,10 +278,11 @@ def compute_residuals(st: SolverState, data: QPData, settings: Settings,
                        dphi=dphi.to(dtype))
 
 
-def update_sigma(st: SolverState, settings: Settings, enabled):
+def update_sigma(st: SolverState, settings: Settings, enabled, A=None):
     """Per-constraint penalty boosts (iteration.c:86-145); a change
-    invalidates the cached factor."""
-    pri_norm = norm_inf(st.pri_res)
+    invalidates the cached factor.  Of `A`, the constraint matrix, only
+    whether its rows are sharded is read."""
+    pri_norm = _mnorm(st.pri_res, A)
     cond = (enabled[:, None]
             & (st.pri_res.abs() > settings.theta * st.pri_res_in.abs())
             & st.active)
@@ -245,7 +290,7 @@ def update_sigma(st: SolverState, settings: Settings, enabled):
                        / (pri_norm[:, None] + 1e-6), min=1.0)
     sig_tmp = torch.clamp(mult * st.sigma, max=settings.sigma_max)
     new_sigma = torch.where(cond, sig_tmp, st.sigma)
-    changed = (new_sigma != st.sigma).any(-1)
+    changed = _many(new_sigma != st.sigma, A)
     return st._replace(sigma=new_sigma, sigma_inv=1.0 / new_sigma,
                        sqrt_sigma=torch.sqrt(new_sigma),
                        factor_valid=st.factor_valid & ~changed)
@@ -278,12 +323,13 @@ def update_gamma(st: SolverState, settings: Settings) -> SolverState:
                        factor_valid=st.factor_valid & ~upd)
 
 
-def _boost_gamma_values(st: SolverState, active2, settings: Settings):
+def _boost_gamma_values(st: SolverState, active2, settings: Settings,
+                        A=None):
     """gamma after a boost (iteration.c:158-205): on the Schur path from
     the Gershgorin bound cached at the last factorization, on the KKT path
     a flat 1e10 (the reference disables its estimate there,
     iteration.c:174-182)."""
-    nb_active = active2.sum(-1)
+    nb_active = _msum(active2, A)
     if settings.factorization_method == C.FACTORIZE_KKT:
         boosted = torch.full_like(st.gamma, 1e10)
     else:
@@ -312,7 +358,7 @@ def compute_dual_objective(st: SolverState, data: QPData, scal: ScalingInfo,
     v = cholesky_solve(LQ, g)
     dual_obj = -0.5 * _dot(g, v)
     contrib = torch.where(st.y > 0, st.y * data.bmax, st.y * data.bmin)
-    dual_obj = dual_obj - contrib.sum(-1)
+    dual_obj = dual_obj - _msum(contrib, data.A)
     if settings.scaling:
         dual_obj = dual_obj * scal.cinv
     return dual_obj + data.c
@@ -326,7 +372,8 @@ def calculate_residuals_and_tolerances(st: SolverState, data: QPData,
                                        scal: ScalingInfo,
                                        settings: Settings) -> SolverState:
     """termination.c:44-129."""
-    pri_res_norm = norm_inf(scal.Einv * st.pri_res)
+    A = data.A
+    pri_res_norm = _mnorm(scal.Einv * st.pri_res, A)
     if settings.proximal:
         xx0 = st.x - st.x0
         dua_res_norm = norm_inf(scal.Dinv * (st.dphi
@@ -338,7 +385,7 @@ def calculate_residuals_and_tolerances(st: SolverState, data: QPData,
     dua_res_norm = dua_res_norm * scal.cinv
     dua2_res_norm = dua2_res_norm * scal.cinv
     eps_pri = settings.eps_abs + settings.eps_rel * torch.maximum(
-        norm_inf(scal.Einv * st.Ax), norm_inf(scal.Einv * st.z))
+        _mnorm(scal.Einv * st.Ax, A), _mnorm(scal.Einv * st.z, A))
     max_norm = torch.maximum(
         norm_inf(scal.Dinv * st.Qx),
         torch.maximum(norm_inf(scal.Dinv * data.q),
@@ -360,14 +407,14 @@ def is_primal_infeasible(st: SolverState, data: QPData, scal: ScalingInfo,
                          settings: Settings):
     """termination.c:136-182: (flag (B,), unscaled delta_y certificate)."""
     delta_y = st.yh - st.y
-    eps_norm = settings.eps_prim_inf * norm_inf(scal.E * delta_y)
+    eps_norm = settings.eps_prim_inf * _mnorm(scal.E * delta_y, data.A)
     At_dy = scal.Dinv * (st.Atyh - st.Aty)
     has_ub, has_lb = _bounds(data, scal)
     zero = torch.zeros((), dtype=delta_y.dtype, device=delta_y.device)
-    out_of_bounds = (
+    out_of_bounds = _msum(
         torch.where(has_ub, data.bmax * torch.clamp(delta_y, min=0.0), zero)
         + torch.where(has_lb, data.bmin * torch.clamp(delta_y, max=0.0),
-                      zero)).sum(-1)
+                      zero), data.A)
     flag = ((eps_norm > 0) & (norm_inf(At_dy) <= eps_norm)
             & (out_of_bounds <= -eps_norm))
     cert = scal.E * (scal.cinv[:, None] * delta_y)
@@ -385,8 +432,8 @@ def is_dual_infeasible(st: SolverState, data: QPData, scal: ScalingInfo,
     A_dx = scal.Einv * st.Ad
     has_ub, has_lb = _bounds(data, scal)
     en = eps_norm[:, None]
-    bound_violation = ((has_ub & (A_dx >= en))
-                       | (has_lb & (A_dx <= -en))).any(-1)
+    bound_violation = _many((has_ub & (A_dx >= en))
+                            | (has_lb & (A_dx <= -en)), data.A)
     if settings.proximal:
         Qdx = st.Qd - (st.tau / st.gamma)[:, None] * st.d
     else:
@@ -411,8 +458,11 @@ def _assemble(st: SolverState, data: QPData, settings: Settings, active):
     the Gershgorin bound of A' diag(sigma active) A."""
     Q, A = data.Q, data.A
     w = torch.where(active, st.sqrt_sigma, torch.zeros_like(st.sqrt_sigma))
-    Bw = A * w[:, :, None]
-    AtsA = torch.bmm(Bw.transpose(1, 2), Bw)
+    if _mesh(A) is not None:
+        AtsA = A.gram(w)
+    else:
+        Bw = A * w[:, :, None]
+        AtsA = torch.bmm(Bw.transpose(1, 2), Bw)
     g = gershgorin_max(AtsA)
     M = Q + AtsA
     if settings.proximal:
@@ -498,8 +548,8 @@ def _newton_and_linesearch(st: SolverState, data: QPData,
     dtype = st.x.dtype
     Q, A = data.Q, data.A
     active = (st.Axys <= data.bmin) | (st.Axys >= data.bmax)
-    nb_enter = (active & ~st.active_old).sum(-1, dtype=_I32)
-    nb_leave = (~active & st.active_old).sum(-1, dtype=_I32)
+    nb_enter = _msum(active & ~st.active_old, A, _I32)
+    nb_leave = _msum(~active & st.active_old, A, _I32)
     reuse = st.factor_valid & (nb_enter == 0) & (nb_leave == 0)
     neg_dphi = -st.dphi
 
@@ -577,7 +627,9 @@ def _linesearch_step(st: SolverState, data: QPData,
     if mode == "auto":
         mode = "bisect" if dtype == torch.float32 else "sort"
     tau = exact_linesearch(d, Qd, Ad, st.df, st.Ax, st.y, st.sigma,
-                           st.sqrt_sigma, data.bmin, data.bmax, mode=mode)
+                           st.sqrt_sigma, data.bmin, data.bmax, mode=mode,
+                           gather=A.gather if _mesh(A) is not None
+                           else None)
     t = tau[:, None]
     Qd_t = t * Qd
     Ad_t = t * Ad
@@ -603,7 +655,7 @@ def make_iteration(data: QPData, scal: ScalingInfo, settings: Settings,
         """qpalm.c:515-644."""
         st = st._replace(no_change=torch.zeros_like(st.no_change))
         do_sigma = (st.iter_out > 0) & (st.pri_res_norm > st.eps_pri)
-        st = update_sigma(st, settings, do_sigma)
+        st = update_sigma(st, settings, do_sigma, data.A)
         st = st._replace(y=st.yh, Aty=st.Atyh)
         if settings.enable_dual_termination:
             dual_obj = compute_dual_objective(st, data, scal, settings, LQ)
@@ -624,7 +676,8 @@ def make_iteration(data: QPData, scal: ScalingInfo, settings: Settings,
             # move the proximal center only when pri_res has caught up
             # (qpalm.c:586-609)
             eps_k = st.eps_k_abs + st.eps_k_rel * torch.maximum(
-                norm_inf(scal.Einv * st.Ax), norm_inf(scal.Einv * st.z))
+                _mnorm(scal.Einv * st.Ax, data.A),
+                _mnorm(scal.Einv * st.z, data.A))
             move = st.pri_res_norm < eps_k
             st = st._replace(
                 x0=torch.where(move[:, None], st.x, st.x0),
@@ -641,17 +694,18 @@ def make_iteration(data: QPData, scal: ScalingInfo, settings: Settings,
                      & (st.pri_res_norm < st.eps_pri))
             Axys2 = st.Ax + st.y * st.sigma_inv  # y == yh here
             active2 = (Axys2 <= data.bmin) | (Axys2 >= data.bmax)
-            nb_enter2 = (active2 & ~st.active_old).sum(-1, dtype=_I32)
-            nb_leave2 = (~active2 & st.active_old).sum(-1, dtype=_I32)
+            nb_enter2 = _msum(active2 & ~st.active_old, data.A, _I32)
+            nb_leave2 = _msum(~active2 & st.active_old, data.A, _I32)
             boost = check & (nb_enter2 == 0) & (nb_leave2 == 0)
-            boosted_gamma = _boost_gamma_values(st, active2, settings)
+            boosted_gamma = _boost_gamma_values(st, active2, settings,
+                                                data.A)
             stepped_gamma = _stepped_gamma(st, settings)[1]
             st = _apply_gamma_change(
                 st, torch.where(boost, boosted_gamma, stepped_gamma))
             # gamma_maxed latches only when constraints were active at the
             # boost (iteration.c:195); the check overwrites the active-set
             # diff (qpalm.c:617-618)
-            nb_active2 = active2.sum(-1)
+            nb_active2 = _msum(active2, data.A)
             st = st._replace(
                 gamma_maxed=st.gamma_maxed | (boost & (nb_active2 > 0)),
                 active=torch.where(check[:, None], active2, st.active),
@@ -665,7 +719,7 @@ def make_iteration(data: QPData, scal: ScalingInfo, settings: Settings,
         """inner_max_iter hit (qpalm.c:647-660)."""
         st = st._replace(no_change=torch.zeros_like(st.no_change))
         do_sigma = (st.iter_out > 0) & (st.pri_res_norm > st.eps_pri)
-        st = update_sigma(st, settings, do_sigma)
+        st = update_sigma(st, settings, do_sigma, data.A)
         if settings.proximal:
             st = update_gamma(st, settings)
             if not settings.nonconvex:

@@ -42,16 +42,21 @@ def _fma_positive(a, b, c) -> torch.Tensor:
 
 
 def exact_linesearch(d, Qd, Ad, df, Ax, y, sigma, sqrt_sigma, bmin, bmax,
-                     mode: str = "sort") -> torch.Tensor:
+                     mode: str = "sort", gather=None) -> torch.Tensor:
     """tau (B,) minimizing phi(x + tau d) (linesearch.py:24-57).  Qd and
     Ad are the caller's (Q d [+ d/gamma] and A d); `mode` "sort" walks the
-    sorted breakpoints, "bisect" bisects."""
+    sorted breakpoints, "bisect" bisects.  With the constraint rows sharded
+    over a mesh, `gather(s_ad, alpha_lo, alpha_hi)` gathers the shards'
+    pieces into whole (1, m) rows in row order, and the search runs
+    replicated on them."""
     eta = (d * Qd).sum(-1)
     beta = (d * df).sum(-1)
     s_ad = sqrt_sigma * Ad
-    delta = torch.cat([-s_ad, s_ad], -1)
     alpha_lo = (y + sigma * (Ax - bmin)) / sqrt_sigma
     alpha_hi = (-y + sigma * (bmax - Ax)) / sqrt_sigma
+    if gather is not None:
+        s_ad, alpha_lo, alpha_hi = gather(s_ad, alpha_lo, alpha_hi)
+    delta = torch.cat([-s_ad, s_ad], -1)
     alpha = torch.cat([alpha_lo, alpha_hi], -1)
     if mode == "bisect":
         return linesearch_bisection(eta, beta, delta, alpha)

@@ -16,13 +16,17 @@ Per row, one batch, serially:
 The rows, generators, seeds, batch-size schedule and f32 settings are the
 reference's (bench_workloads.py:61-90).  Of its 15 rows, the 8 with an
 on-chip plan run K1's on-chip tier and 7 (n_pad 136 to 352) its streaming
-tier.  Not carried over: the C baseline column (`baseline_c`, ROADMAP.md
-section 1 item 2), the timed repetitions over perturbed problem sets, and
-the reference's round pipelining (the kernel of round k+1 overlapping the
-polish of round k), which is later work.
+tier.  The C baseline column is the reference's (bench_workloads.py:
+221-251): the native single-threaded C/LAPACK solver (`baseline_c`) on the
+row's first `baseline_sample` problems at the same eps, scaling 2, timed a
+solve at a time after one untimed warm solve, its solves/s beside the
+row's.  Not carried over: the timed repetitions over perturbed problem
+sets, and the reference's round pipelining (the kernel of round k+1
+overlapping the polish of round k), which is later work.
 
     python -m qpalm_tpu_torch.sweep [--rows randomQP:352 lasso:50 ...]
                                     [--batch B] [--device cuda|cpu]
+                                    [--baseline-sample 8]
 
 prints one JSON line of rows.  Times on the card: `k1_ms` by the CUDA
 events fused_palm records around its launches, the rest by the host clock.
@@ -37,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from . import referee
+from . import baseline_c, referee
 from .batch import solve_batch, stack_problems
 from .finish_np import palm_finish_np
 from .polish import polish_batch_np
@@ -106,10 +110,30 @@ def retry_rejected(d64: QPData, x0, y0, ok, x, y) -> int:
     return len(still)
 
 
-def run_row(family: str, size: int, device="cuda", batch: int = 0) -> dict:
+def baseline_column(probs, sample: int = 8) -> dict:
+    """The C baseline on the first `sample` problems (bench_workloads.py:
+    221-251): one untimed warm solve, then each solved once at EPS,
+    scaling 2; its solves/s and how many it solved."""
+    sample = list(probs[:sample])
+    if not sample:
+        return dict(baseline_solves_per_s=None, baseline_solved=0,
+                    baseline_sample=0)
+    baseline_c.solve(*sample[0], eps_abs=EPS, eps_rel=EPS, scaling=2)
+    t0 = time.perf_counter()
+    solved = sum(baseline_c.solve(*p, eps_abs=EPS, eps_rel=EPS,
+                                  scaling=2)["status"] == 1 for p in sample)
+    dt = time.perf_counter() - t0
+    return dict(baseline_solves_per_s=len(sample) / dt,
+                baseline_solved=int(solved), baseline_sample=len(sample))
+
+
+def run_row(family: str, size: int, device="cuda", batch: int = 0,
+            baseline_sample: int = 8) -> dict:
     """One row of the sweep; returns its numbers.  `certified` counts the
     lanes whose final polish check passed at 1e-6, `referee_disagreements`
-    those of them the f64 referee rejects."""
+    those of them the f64 referee rejects; `speedup` divides the row's
+    solves/s (its lanes over `wall_s`) by the C baseline's
+    (`baseline_column`; none with `baseline_sample` 0)."""
     probs = row_problems(family, size, batch)
     B = len(probs)
     dev = torch.device(device)
@@ -145,6 +169,7 @@ def run_row(family: str, size: int, device="cuda", batch: int = 0) -> dict:
     t4 = time.perf_counter()
 
     viol = referee.check(*d64, x, y, EPS, EPS)[0]
+    base = baseline_column(probs, baseline_sample)
     return dict(
         family=family, size=f"n={size}", batch=B, n_pad=n_pad, m_pad=m_pad,
         tier=F.pick_tier(n_pad, m_pad), device=str(dev),
@@ -156,7 +181,10 @@ def run_row(family: str, size: int, device="cuda", batch: int = 0) -> dict:
         mean_iterations=float(iters.mean()), max_iterations=int(iters.max()),
         wall_s=t4 - t0, solve_s=t1 - t0,
         k1_ms=sum(a.elapsed_time(b) for a, b in events) if cuda else None,
-        copy_s=t2 - t1, polish_s=t3 - t2, retry_finish_s=t4 - t3)
+        copy_s=t2 - t1, polish_s=t3 - t2, retry_finish_s=t4 - t3,
+        solves_per_s=B / (t4 - t0), **base,
+        speedup=(B / (t4 - t0) / base["baseline_solves_per_s"]
+                 if base["baseline_solves_per_s"] else None))
 
 
 def main(argv=None):
@@ -166,6 +194,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=0,
                     help="problems per row (0: the reference's schedule)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--baseline-sample", type=int, default=8,
+                    help="problems a row the C baseline solves (0: none)")
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
@@ -173,7 +203,8 @@ def main(argv=None):
                          "plain twin on the host")
     rows = ROWS if args.rows is None else [
         (r.split(":")[0], int(r.split(":")[1])) for r in args.rows]
-    out = [run_row(f, n, args.device, args.batch) for f, n in rows]
+    out = [run_row(f, n, args.device, args.batch, args.baseline_sample)
+           for f, n in rows]
     print(json.dumps({"rows": out}))
 
 

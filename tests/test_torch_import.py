@@ -31,7 +31,14 @@ PORT_MODULES = [
     "qpalm_tpu_torch.parallel", "qpalm_tpu_torch.parallel.mesh",
     "qpalm_tpu_torch.parallel.block_tridiag",
     "qpalm_tpu_torch.parallel.mpc_loop", "qpalm_tpu_torch.parallel.sharded",
-    "qpalm_tpu_torch.parallel.dryrun",
+    "qpalm_tpu_torch.parallel.dryrun", "qpalm_tpu_torch.parallel.schur",
+    *(f"qpalm_tpu_torch.scripts.{m}" for m in (
+        "run_qps_suite", "bench_mpc", "bench_scenarios", "bench_sparse",
+        "bench_large_single", "bench_large_batch", "bench_nonconvex",
+        "bench_cross_solver", "bench_scaling")),
+    *(f"qpalm_tpu_torch.examples.{m}" for m in (
+        "demo", "batch_demo", "sparse_demo", "nonconvex_demo",
+        "branch_and_bound_demo", "distributed_demo")),
 ]
 
 
@@ -74,15 +81,10 @@ def test_settings_defaults_match_reference():
         dataclasses.asdict(custom)
 
 
-# reference names the port does not have yet, by name (ROADMAP.md)
-PENDING = {"solve_constraint_sharded"}
-
-
 @pytest.mark.parametrize("sub", ["", ".linalg", ".solver", ".parallel"])
 def test_public_surface_matches_reference(sub):
     """Every name of the reference package's __all__ is in the port's
-    __all__ and is an attribute of the port's package, but the pending
-    ones."""
+    __all__ and is an attribute of the port's package."""
     import importlib
 
     pytest.importorskip("jax")
@@ -90,7 +92,7 @@ def test_public_surface_matches_reference(sub):
     port = importlib.import_module("qpalm_tpu_torch" + sub)
     missing = [n for n in ref.__all__
                if n not in port.__all__ or not hasattr(port, n)]
-    assert set(missing) <= PENDING, missing
+    assert not missing, missing
     assert all(hasattr(port, n) for n in port.__all__)
 
 

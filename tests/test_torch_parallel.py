@@ -129,7 +129,8 @@ def test_pad_batch_to_devices():
 
 def test_gloo_dryrun_four_processes_bit_identical(tmp_path):
     """The dry run (data-parallel batches with both aggregate modes,
-    SPIKE, the stage-sharded loop) over 4 spawned gloo processes meeting
+    SPIKE, the stage-sharded loop, the constraint-sharded solve) over 4
+    spawned gloo processes meeting
     through a FileStore: every rank's results bit-identical to
     LocalMesh(4)'s.  The process group and the join each wait at most
     60 s."""
@@ -138,5 +139,6 @@ def test_gloo_dryrun_four_processes_bit_identical(tmp_path):
     checked = dryrun_processes(4, tmp_path, timeout=60.0)
     for key in ("sharded_dp_x", "dp_n_solved", "dp_total_iters",
                 "dp_max_iters", "sharded_dp_part_max_iters",
-                "sharded_spike_x", "sharded_mpc_z", "mpc_iterations"):
+                "sharded_spike_x", "sharded_mpc_z", "mpc_iterations",
+                "schur_x", "schur_y", "schur_iterations"):
         assert checked.get(key), key

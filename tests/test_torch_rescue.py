@@ -150,14 +150,10 @@ def _reference_rescue(data, caps):
 def test_rescue_round_matches_the_reference_chain(monkeypatch):
     """Headline lanes handed in as the failing set, two of them with the C
     solve cut to 2 iterations so that its check fails and finish_np runs.
-    The reference's polish solves by its native Bunch-Kaufman where that is
-    built; held to numpy LU, as the port's copy solves, the rescued x, y
-    and ok are equal."""
+    Both polishes solve by the native Bunch-Kaufman factor: the rescued x,
+    y and ok are equal."""
     _port()
     _reference()
-    import qpalm_tpu.polish
-
-    monkeypatch.setattr(qpalm_tpu.polish, "_bkkt_lib", lambda: None)
     probs = make_problems(4, 64, 96, seed=11)
     data = QPData(*(a.numpy() for a in stack_problems(probs, np.float64)))
     caps = [10000, 2, 10000, 2]
