@@ -18,6 +18,11 @@ the headline's rescue and `solve_sparse_auto`'s native engine,
 baseline_c.py), the sparse LDL' backend (linalg/sparse_direct.py) and the
 QPS reader (io/native.py).  Each links the first BLAS/LAPACK of
 `blas_routes()` that builds and loads.
+
+Spans and counters (trace.py): "build", one library's hash, compiles and
+load; "build.compile", one compiler step (the nvcc runs of the sources,
+which run together, their link, or one g++ run); `build.compiles`, the
+compiler processes run; `build.compile_failures`, those that failed.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from . import trace
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -97,24 +104,31 @@ def build(verbose: bool = False) -> tuple[Path, str]:
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
     nvcc = _nvcc()
     jobs = []
-    for src, obj in zip(cu, objs):
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
     log = []
     try:
-        for cmd, proc in jobs:
-            text = proc.communicate()[0]
-            log.append(text)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{text}")
+        with trace.span("build.compile"):
+            for src, obj in zip(cu, objs):
+                cmd = [nvcc, *NVCC_FLAGS,
+                       *(["-Xptxas", "-v"] if verbose else []),
+                       "-c", "-o", str(obj), str(src)]
+                jobs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            trace.count("build.compiles", len(jobs))
+            for cmd, proc in jobs:
+                text = proc.communicate()[0]
+                log.append(text)
+                if proc.returncode != 0:
+                    trace.count("build.compile_failures")
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                       f"{' '.join(cmd)}\n{text}")
         tmp = BUILD_DIR / f"{tag}.tmp"
         cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with trace.span("build.compile"):
+            trace.count("build.compiles")
+            proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
+            trace.count("build.compile_failures")
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}"
                                f"{proc.stderr}")
@@ -132,7 +146,8 @@ def build(verbose: bool = False) -> tuple[Path, str]:
 @functools.cache
 def kernels() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
-    lib = ctypes.CDLL(str(build()[0]))
+    with trace.span("build"):
+        lib = ctypes.CDLL(str(build()[0]))
     for name, args in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -197,6 +212,12 @@ def build_native(stem: str, sources, flags, routes) -> tuple[ctypes.CDLL,
     link against a LAPACK that its loader cannot find).  Returns (the
     loaded library, the route's name); raises RuntimeError with every
     route's error when none does."""
+    with trace.span("build"):
+        return _build_native(stem, sources, flags, routes)
+
+
+def _build_native(stem, sources, flags, routes):
+    """`build_native`'s work, a span "build.compile" a g++ run."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++ or c++) on PATH")
@@ -212,8 +233,11 @@ def build_native(stem: str, sources, flags, routes) -> tuple[ctypes.CDLL,
             BUILD_DIR.mkdir(exist_ok=True)
             tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
             cmd = [cxx, *flags, "-o", str(tmp), *map(str, paths), *link]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            with trace.span("build.compile"):
+                trace.count("build.compiles")
+                proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
+                trace.count("build.compile_failures")
                 tmp.unlink(missing_ok=True)
                 errors.append(f"{name}: {' '.join(cmd)}\n"
                               f"{proc.stderr.strip()}")

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from . import trace
 from .linalg.chol import SMEM_LIMIT
 from .solver import core
 from .solver.fused import (STREAM_N_MAX, fused_smem_bytes, pick_tier,
@@ -82,7 +83,20 @@ def stack_problems(
     device="cpu",
 ) -> QPData:
     """Pad each (Q, A, q, bmin, bmax[, c]) tuple to a common shape and stack
-    into one batched QPData of `dtype` tensors on `device`."""
+    into one batched QPData of `dtype` tensors on `device`.  Spans
+    (trace.py): "stack.pad", the work a problem; "stack.join", the stacks
+    and the tensors."""
+    with trace.span("stack.pad"):
+        Qs, As, qs, bls, bus, cs = _pad_problems(problems, dtype,
+                                                 pad_multiple, n_pad, m_pad)
+    with trace.span("stack.join"):
+        arrays = (np.stack(Qs), np.stack(As), np.stack(qs), np.stack(bls),
+                  np.stack(bus), np.asarray(cs, dtype))
+        return QPData(*(torch.from_numpy(a).to(device) for a in arrays))
+
+
+def _pad_problems(problems, dtype, pad_multiple, n_pad, m_pad):
+    """`stack_problems`' padded pieces: lists of Q, A, q, bmin, bmax, c."""
     sizes = [(_densify(p[0]).shape[0], _densify(p[1]).shape[0])
              for p in problems]
     if n_pad is None:
@@ -106,9 +120,7 @@ def stack_problems(
         bls.append(np.maximum(bl, -_PAD_BOUND))
         bus.append(np.minimum(bu, _PAD_BOUND))
         cs.append(c)
-    arrays = (np.stack(Qs), np.stack(As), np.stack(qs), np.stack(bls),
-              np.stack(bus), np.asarray(cs, dtype))
-    return QPData(*(torch.from_numpy(a).to(device) for a in arrays))
+    return Qs, As, qs, bls, bus, cs
 
 
 def bucket_indices(sizes: Sequence[tuple], pad_multiple: int = 8) -> dict:

@@ -52,7 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import baseline_c, referee
+from . import baseline_c, referee, trace
 from .batch import stack_problems
 from .finish_np import palm_finish_np
 from .polish import polish_batch_np
@@ -105,7 +105,7 @@ class RescueResult(NamedTuple):
     by_finish: int    # lanes certified after finish_np
 
 
-def rescue_round(data: QPData) -> RescueResult:
+def rescue_round(data: QPData, rid: int | None = None) -> RescueResult:
     """The host rescue of the lanes a device polish rejected
     (bench.py:289-347), on host numpy float64 stacks of those lanes only:
 
@@ -116,19 +116,33 @@ def rescue_round(data: QPData) -> RescueResult:
 
     A lane counts only where a host polish check passed.  Uses no torch:
     it runs beside the card's work in a thread (the C solve and LAPACK
-    release the interpreter lock)."""
+    release the interpreter lock).  `rid`: the request id of the round
+    whose lanes these are, for the trace's spans (trace.py)."""
+    if not len(data[2]):
+        return _rescue_lanes(data)
+    with trace.span("rescue", request=rid):
+        trace.count("rescue.lanes", len(data[2]))
+        return _rescue_lanes(data)
+
+
+def _rescue_lanes(data: QPData) -> RescueResult:
+    """`rescue_round`'s work, with its spans "rescue.c_solve" (a lane) and
+    "rescue.polish"."""
     Q, A, q, bmin, bmax = (np.asarray(a, np.float64) for a in data[:5])
     lanes, n = q.shape
     if not lanes:
         return RescueResult(np.zeros(0, bool), q.copy(), bmin.copy(), 0, 0)
     xs, ys = np.zeros((lanes, n)), np.zeros((lanes, bmin.shape[1]))
     for j in range(lanes):
-        r = baseline_c.solve(Q[j], A[j], q[j], bmin[j], bmax[j],
-                             eps_abs=0.5 * EPS_TARGET,
-                             eps_rel=0.5 * EPS_TARGET, scaling=2, delta=10.0)
+        with trace.span("rescue.c_solve"):
+            r = baseline_c.solve(Q[j], A[j], q[j], bmin[j], bmax[j],
+                                 eps_abs=0.5 * EPS_TARGET,
+                                 eps_rel=0.5 * EPS_TARGET, scaling=2,
+                                 delta=10.0)
         xs[j], ys[j] = r["x"], r["y"]
-    pol = polish_batch_np(data, xs, ys, eps_abs=EPS_TARGET,
-                          eps_rel=EPS_TARGET, rounds=1)
+    with trace.span("rescue.polish"):
+        pol = polish_batch_np(data, xs, ys, eps_abs=EPS_TARGET,
+                              eps_rel=EPS_TARGET, rounds=1)
     ok, x, y = pol.ok.copy(), pol.x.copy(), pol.y.copy()
     by_c = int(ok.sum())
     still = np.flatnonzero(~ok)
@@ -150,32 +164,46 @@ def card() -> str:
     return out[0] if out else "nvidia-smi printed nothing"
 
 
-def _round(probs, dev, cuda):
+def _round(probs, dev, cuda, rid=None):
     """One round up to the device polish's flags.  Returns (ok flags,
     the polish result on the device, the host f64 stack, host-clock phases
-    in seconds, the round's CUDA events: K1's launches and the polish's)."""
+    in seconds, the round's CUDA events: K1's launches and the polish's).
+    The trace's spans (trace.py) cover the phases under a root span
+    "round" of request id `rid` (a new one if None)."""
+    with trace.span("round", request=rid):
+        return _round_phases(probs, dev, cuda)
+
+
+def _round_phases(probs, dev, cuda):
+    """`_round`'s work, a span for each phase."""
     t0 = time.perf_counter()
-    h32 = stack_problems(probs, np.float32)
-    h64 = stack_problems(probs, np.float64)
+    with trace.span("stack"):
+        h32 = stack_problems(probs, np.float32)
+        h64 = stack_problems(probs, np.float64)
     t1 = time.perf_counter()
-    d32 = QPData(*(t.to(dev) for t in h32))
-    d64 = QPData(*(t.to(dev) for t in h64))
+    with trace.span("copy"):
+        d32 = QPData(*(t.to(dev) for t in h32))
+        d64 = QPData(*(t.to(dev) for t in h64))
     t2 = time.perf_counter()
-    F.fused_palm.events = [] if cuda else None
-    try:
-        x, y = F.solve_batch_fused(d32, S32)[:2]
-        k1_events = F.fused_palm.events
-    finally:
-        F.fused_palm.events = None
-    pol_events = None
-    if cuda:
-        pol_events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        pol_events[0].record()
-    pol = polish_batch(d64, x, y, **POLISH)
-    if cuda:
-        pol_events[1].record()
+    with trace.span("enqueue.k1"):
+        F.fused_palm.events = [] if cuda else None
+        try:
+            x, y = F.solve_batch_fused(d32, S32)[:2]
+            k1_events = F.fused_palm.events
+        finally:
+            F.fused_palm.events = None
+    with trace.span("enqueue.polish"):
+        pol_events = None
+        if cuda:
+            pol_events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+            pol_events[0].record()
+        pol = polish_batch(d64, x, y, **POLISH)
+        if cuda:
+            pol_events[1].record()
     t3 = time.perf_counter()
-    ok = pol.ok.cpu().numpy()
+    with trace.span("flag_fetch"):
+        ok = pol.ok.cpu().numpy()
     t4 = time.perf_counter()
     phases = dict(stack=t1 - t0, copy=t2 - t1, enqueue=t3 - t2,
                   flag_fetch=t4 - t3)
@@ -189,10 +217,11 @@ def _rep(rounds, dev, cuda, pool):
     t0 = time.perf_counter()
     outs, futures = [], []
     for probs in rounds:
-        ok, pol, h64, phases, events = _round(probs, dev, cuda)
+        rid = trace.new_request()
+        ok, pol, h64, phases, events = _round(probs, dev, cuda, rid)
         bad = np.flatnonzero(~ok)
         futures.append((bad, pool.submit(
-            rescue_round, QPData(*(a[bad] for a in h64)))))
+            rescue_round, QPData(*(a[bad] for a in h64)), rid)))
         outs.append((ok, pol, h64, phases, events))
     tj = time.perf_counter()
     rescues = [(bad, fut.result()) for bad, fut in futures]

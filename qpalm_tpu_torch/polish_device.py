@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from . import constants as C
+from . import trace
 from .linalg.chol import cholesky_solve, cholesky_upper
 from .precision import full_f32_matmul
 from .types import QPData
@@ -184,7 +185,8 @@ def polish_batch(data: QPData, x32, y32, eps_abs: float = 1e-6,
     of polished point and seed by a second check; "norm" falls back to the
     seed only where the refinement diverged; False reports the polished
     point as is.  `second_round_k > 0` re-polishes the worst-K lanes from
-    the round-1 point with delta_hat >= 0.1 and 10 sweeps, twice.
+    the round-1 point with delta_hat >= 0.1 and 10 sweeps, twice.  Spans
+    (trace.py): "polish.round1", "polish.second_round" (their launches).
     """
     full_f32_matmul()
     f64 = torch.float64
@@ -192,38 +194,40 @@ def polish_batch(data: QPData, x32, y32, eps_abs: float = 1e-6,
     x0 = torch.as_tensor(x32, device=Q.device).to(f64)
     y0 = torch.as_tensor(y32, device=Q.device).to(f64)
 
-    x, y, viol, pri, dua, obj = _polish_core(
-        Q, A, q, bmin, bmax, c, x0, y0, eps_abs, eps_rel, act_tol, delta_hat,
-        refine_iters, fallback_to_seed=(seed_guard == "norm"),
-        residual32=residual32)
+    with trace.span("polish.round1"):
+        x, y, viol, pri, dua, obj = _polish_core(
+            Q, A, q, bmin, bmax, c, x0, y0, eps_abs, eps_rel, act_tol,
+            delta_hat, refine_iters, fallback_to_seed=(seed_guard == "norm"),
+            residual32=residual32)
 
-    if seed_guard is True:
-        viol0, pri0, dua0, obj0 = _check(Q, A, q, bmin, bmax, c, x0, y0,
-                                         eps_abs, eps_rel)
-        better = viol <= viol0
-        x = torch.where(better[:, None], x, x0)
-        y = torch.where(better[:, None], y, y0)
-        viol = torch.where(better, viol, viol0)
-        pri = torch.where(better, pri, pri0)
-        dua = torch.where(better, dua, dua0)
-        obj = torch.where(better, obj, obj0)
+        if seed_guard is True:
+            viol0, pri0, dua0, obj0 = _check(Q, A, q, bmin, bmax, c, x0, y0,
+                                             eps_abs, eps_rel)
+            better = viol <= viol0
+            x = torch.where(better[:, None], x, x0)
+            y = torch.where(better[:, None], y, y0)
+            viol = torch.where(better, viol, viol0)
+            pri = torch.where(better, pri, pri0)
+            dua = torch.where(better, dua, dua0)
+            obj = torch.where(better, obj, obj0)
 
     if second_round_k:
-        k2 = min(int(second_round_k), x.shape[0])
-        idx = torch.topk(viol, k2).indices
-        dh2 = max(delta_hat, 1e-1)
-        x2, y2 = x[idx], y[idx]
-        for _ in range(2):
-            x2, y2, viol2, pri2, dua2, obj2 = _polish_core(
-                Q[idx], A[idx], q[idx], bmin[idx], bmax[idx], c[idx], x2, y2,
-                eps_abs, eps_rel, act_tol, dh2, 10,
-                fallback_to_seed=bool(seed_guard), residual32=residual32)
-        imp = viol2 < viol[idx]
-        x, y, viol, pri, dua, obj = (
-            a.index_copy(0, idx, torch.where(
-                imp[:, None] if a.dim() == 2 else imp, a2, a[idx]))
-            for a, a2 in ((x, x2), (y, y2), (viol, viol2), (pri, pri2),
-                          (dua, dua2), (obj, obj2)))
+        with trace.span("polish.second_round"):
+            k2 = min(int(second_round_k), x.shape[0])
+            idx = torch.topk(viol, k2).indices
+            dh2 = max(delta_hat, 1e-1)
+            x2, y2 = x[idx], y[idx]
+            for _ in range(2):
+                x2, y2, viol2, pri2, dua2, obj2 = _polish_core(
+                    Q[idx], A[idx], q[idx], bmin[idx], bmax[idx], c[idx],
+                    x2, y2, eps_abs, eps_rel, act_tol, dh2, 10,
+                    fallback_to_seed=bool(seed_guard), residual32=residual32)
+            imp = viol2 < viol[idx]
+            x, y, viol, pri, dua, obj = (
+                a.index_copy(0, idx, torch.where(
+                    imp[:, None] if a.dim() == 2 else imp, a2, a[idx]))
+                for a, a2 in ((x, x2), (y, y2), (viol, viol2), (pri, pri2),
+                              (dua, dua2), (obj, obj2)))
 
     return DevicePolishResult(x=x, y=y, ok=viol <= accept_viol, pri_res=pri,
                               dua_res=dua, objective=obj)

@@ -32,6 +32,7 @@ PORT_MODULES = [
     "qpalm_tpu_torch.parallel.block_tridiag",
     "qpalm_tpu_torch.parallel.mpc_loop", "qpalm_tpu_torch.parallel.sharded",
     "qpalm_tpu_torch.parallel.dryrun", "qpalm_tpu_torch.parallel.schur",
+    "qpalm_tpu_torch.trace",
     *(f"qpalm_tpu_torch.scripts.{m}" for m in (
         "run_qps_suite", "bench_mpc", "bench_scenarios", "bench_sparse",
         "bench_large_single", "bench_large_batch", "bench_nonconvex",
