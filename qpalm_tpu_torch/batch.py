@@ -2,7 +2,8 @@
 padding of qpalm_tpu/api.py:30-65).
 
     solve_batch / solve_many
-      -> stack_problems                  numpy padding, tensors on `device`
+      -> stack_problems                  padding written in place, tensors
+                                         on `device`
       -> [nonconvex] solver.nonconvex.batch_gamma_pins   LOBPCG on scaled Q
       -> _fused_eligible                 dtype, settings, K1's memory plan
       -> solver.fused.solve_batch_fused  kernel K1 (its plain twin on a CPU)
@@ -10,11 +11,11 @@ padding of qpalm_tpu/api.py:30-65).
                                          host-chunked under a time limit
       -> BatchResult                     objective on the unscaled data
 
-The padding runs in numpy exactly as in the reference.  A batch goes to
-K1 where the reference's routing rule sends it to its fused kernel
-(qpalm_tpu/batch.py:141-172: float32, SCHUR, no time limit, refinement or
-f64 residuals, and a shape with a fused memory plan); every other batch
-runs the general loop, as the reference's does.  `solve_batch_escalate`
+The padding is written in numpy, bit-equal to the reference's.  A batch
+goes to K1 where the reference's routing rule sends it to its fused
+kernel (qpalm_tpu/batch.py:141-172: float32, SCHUR, no time limit,
+refinement or f64 residuals, and a shape with a fused memory plan); every
+other batch runs the general loop, as the reference's does.  `solve_batch_escalate`
 re-solves the lanes that did not solve in float64 on the same device.
 """
 
@@ -81,46 +82,75 @@ def stack_problems(
     n_pad: Optional[int] = None,
     m_pad: Optional[int] = None,
     device="cpu",
+    pin_memory: bool = False,
 ) -> QPData:
     """Pad each (Q, A, q, bmin, bmax[, c]) tuple to a common shape and stack
-    into one batched QPData of `dtype` tensors on `device`.  Spans
-    (trace.py): "stack.pad", the work a problem; "stack.join", the stacks
-    and the tensors."""
+    into one batched QPData of `dtype` tensors on `device`, each problem
+    padded as `pad_problem` pads it.
+
+    The stacked arrays are allocated once and written in place: the
+    padding strips for the whole batch, then each problem's blocks.  With
+    `pin_memory`, or a CUDA `device`, they are allocated page-locked (from
+    torch's caching host allocator), so the copy to the card reads them
+    directly.  Span (trace.py): "stack.pad", the allocation and the
+    writes; counter "stack.pinned_bytes", the bytes written into
+    page-locked memory."""
+    device = torch.device(device)
+    pin = pin_memory or device.type == "cuda"
     with trace.span("stack.pad"):
-        Qs, As, qs, bls, bus, cs = _pad_problems(problems, dtype,
-                                                 pad_multiple, n_pad, m_pad)
-    with trace.span("stack.join"):
-        arrays = (np.stack(Qs), np.stack(As), np.stack(qs), np.stack(bls),
-                  np.stack(bus), np.asarray(cs, dtype))
-        return QPData(*(torch.from_numpy(a).to(device) for a in arrays))
+        host = _stack_in_place(problems, np.dtype(dtype), pad_multiple,
+                               n_pad, m_pad, pin)
+    if pin:
+        trace.count("stack.pinned_bytes", sum(t.nbytes for t in host))
+    return QPData(*(t.to(device) for t in host))
 
 
-def _pad_problems(problems, dtype, pad_multiple, n_pad, m_pad):
-    """`stack_problems`' padded pieces: lists of Q, A, q, bmin, bmax, c."""
-    sizes = [(_densify(p[0]).shape[0], _densify(p[1]).shape[0])
-             for p in problems]
+def _stack_in_place(problems, dtype, pad_multiple, n_pad, m_pad, pin):
+    """`stack_problems`' host tensors Q, A, q, bmin, bmax, c, bit-equal to
+    `pad_problem` a problem, the bounds clipped to +-_PAD_BOUND, and
+    `np.stack`."""
+    dense = [(_densify(p[0]), _densify(p[1])) for p in problems]
+    ns = [Q.shape[0] for Q, _ in dense]
+    ms = [A.shape[0] for _, A in dense]
     if n_pad is None:
-        n_pad = _round_up(max(s[0] for s in sizes), pad_multiple)
+        n_pad = _round_up(max(ns), pad_multiple)
     if m_pad is None:
-        m_pad = _round_up(max(max(s[1] for s in sizes), 1), pad_multiple)
-    Qs, As, qs, bls, bus, cs = [], [], [], [], [], []
-    for p in problems:
-        Q, A, q, bmin, bmax = p[:5]
-        c = p[5] if len(p) > 5 else 0.0
-        Qp, Ap, qp, bl, bu = pad_problem(
-            _densify(Q), _densify(A),
-            np.asarray(q, float).ravel(),
-            np.asarray(bmin, float).ravel(),
-            np.asarray(bmax, float).ravel(),
-            n_pad, m_pad, dtype,
-        )
-        Qs.append(Qp)
-        As.append(Ap)
-        qs.append(qp)
-        bls.append(np.maximum(bl, -_PAD_BOUND))
-        bus.append(np.minimum(bu, _PAD_BOUND))
-        cs.append(c)
-    return Qs, As, qs, bls, bus, cs
+        m_pad = _round_up(max(max(ms), 1), pad_multiple)
+    B = len(problems)
+    tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+    host = [torch.empty(shape, dtype=tdtype, pin_memory=pin)
+            for shape in ((B, n_pad, n_pad), (B, m_pad, n_pad), (B, n_pad),
+                          (B, m_pad), (B, m_pad), (B,))]
+    Q, A, q, bl, bu, c = (t.numpy() for t in host)
+
+    # the padding strips, one write a strip for each group of problems of
+    # one (n, m)
+    groups: dict = {}
+    for i, nm in enumerate(zip(ns, ms)):
+        groups.setdefault(nm, []).append(i)
+    for (n, m), idx in groups.items():
+        lanes = slice(None) if len(idx) == B else idx
+        diag = np.arange(n, n_pad)
+        Q[lanes, n:, :] = 0
+        Q[lanes, :n, n:] = 0
+        Q[np.asarray(idx)[:, None], diag, diag] = 1
+        A[lanes, m:, :] = 0
+        A[lanes, :m, n:] = 0
+        q[lanes, n:] = 0
+        bl[lanes, m:] = -_PAD_BOUND
+        bu[lanes, m:] = _PAD_BOUND
+
+    for i, (p, (Qi, Ai), n, m) in enumerate(zip(problems, dense, ns, ms)):
+        Q[i, :n, :n] = Qi
+        A[i, :m, :n] = Ai
+        q[i, :n] = np.asarray(p[2], float).ravel()
+        bl[i, :m] = np.asarray(p[3], float).ravel()
+        bu[i, :m] = np.asarray(p[4], float).ravel()
+    c[:] = np.asarray([p[5] if len(p) > 5 else 0.0 for p in problems],
+                      dtype)
+    np.maximum(bl, -_PAD_BOUND, out=bl)
+    np.minimum(bu, _PAD_BOUND, out=bu)
+    return host
 
 
 def bucket_indices(sizes: Sequence[tuple], pad_multiple: int = 8) -> dict:

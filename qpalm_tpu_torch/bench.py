@@ -10,8 +10,9 @@ round k of rep r from workloads.make_problems(B, 64, 96, seed=7 + 1000
 (r K + k)), made before the rep's window.  Each round, all of it charged
 from the rep's problem lists on:
 
-    stack      batch.stack_problems in f32 and f64 (host numpy)
-    copy       both stacks to the card
+    stack      batch.stack_problems in f64 (host numpy, page-locked on a
+               card)
+    copy       the stack to the card, and its f32 cast there
     k1         solver.fused.solve_batch_fused: scaling, kernel K1 at eps
                5e-5, max_iter 96, scaling 2, delta 10, unscaling
     polish     polish_device.polish_batch at 1e-6 (kernels K2a, K2b):
@@ -178,12 +179,11 @@ def _round_phases(probs, dev, cuda):
     """`_round`'s work, a span for each phase."""
     t0 = time.perf_counter()
     with trace.span("stack"):
-        h32 = stack_problems(probs, np.float32)
-        h64 = stack_problems(probs, np.float64)
+        h64 = stack_problems(probs, np.float64, pin_memory=cuda)
     t1 = time.perf_counter()
     with trace.span("copy"):
-        d32 = QPData(*(t.to(dev) for t in h32))
         d64 = QPData(*(t.to(dev) for t in h64))
+        d32 = QPData(*(t.float() for t in d64))
     t2 = time.perf_counter()
     with trace.span("enqueue.k1"):
         F.fused_palm.events = [] if cuda else None
@@ -322,7 +322,7 @@ def run(device="cuda", rounds=K_ROUNDS, reps=REPS, batch=BATCH) -> dict:
                       "because f64 is emulated on the TPU; the H100 has "
                       "native f64 (polish_device.py:15-19)",
             "charged": "all wall clock of a round from the rep's problem "
-                       "lists on: stacking (f32, f64), copy, scaling, K1, "
+                       "lists on: stacking (f64), copy, scaling, K1, "
                        "unscaling, device polish, flag fetch, and the wait "
                        "for the rescue; bench.py staged its stacks before "
                        "its window (bench.py:198-217), so the value is not "

@@ -1,8 +1,9 @@
 """The port's spans and counters (qpalm_tpu_torch/trace.py): nothing is
 recorded while tracing is off; on, the batch pipeline's round, its
 stacking, its polish and the rescue on another thread record spans that
-nest and share the round's request id; self time; the native builds'
-compile counters against a fake compiler; drain; many threads at once."""
+nest and share the round's request id; the bytes stacked page-locked;
+self time; the native builds' compile counters against a fake compiler;
+drain; many threads at once."""
 
 import subprocess
 import sys
@@ -10,10 +11,12 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
 from qpalm_tpu_torch import _build, baseline_c, bench, trace
+from qpalm_tpu_torch.batch import stack_problems
 from qpalm_tpu_torch.types import QPData
 from qpalm_tpu_torch.workloads import make_problems
 
@@ -77,8 +80,7 @@ def test_round_and_rescue_spans_nest_and_share_the_request():
     for a, b in zip(kids, kids[1:]):
         assert root.start <= a.start <= a.end <= b.start <= b.end <= root.end
     stack = kids[0]
-    assert [s.name for s in _children(spans, stack)] == [
-        "stack.pad", "stack.join"] * 2
+    assert [s.name for s in _children(spans, stack)] == ["stack.pad"]
     polish = kids[3]
     assert [s.name for s in _children(spans, polish)] == [
         "polish.round1", "polish.second_round"]
@@ -112,6 +114,30 @@ def test_a_round_without_an_id_starts_a_request_and_counts_lanes():
                    if s.thread == root.thread and root.start <= s.start
                    and s.end <= root.end)
     assert rec.counters["rescue.lanes"] == 8
+
+
+def test_stack_counts_the_bytes_it_pins(monkeypatch):
+    """"stack.pinned_bytes": the bytes of the stacks allocated
+    page-locked, nothing for a stack that is not.  An allocator that
+    records the request and allocates plain memory stands in for the
+    page-locked one, which needs a card."""
+    asked = []
+    empty = torch.empty
+
+    def record(*shape, pin_memory=False, **kwargs):
+        asked.append(pin_memory)
+        return empty(*shape, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", record)
+    probs = make_problems(4, 16, 24, seed=3)
+    trace.enable()
+    stack_problems(probs, np.float32)
+    assert asked == [False] * 6 and trace.drain().counters == {}
+    host = [stack_problems(probs, dtype, pin_memory=True)
+            for dtype in (np.float32, np.float64)]
+    assert asked[6:] == [True] * 12
+    assert trace.drain().counters == {"stack.pinned_bytes": sum(
+        t.nbytes for h in host for t in h)}
 
 
 def _span(name, start, end, id, parent=None):
