@@ -27,7 +27,8 @@ sharing one staged R (`warp_cols`).  Only a dtype no kernel takes
 raises; nothing falls back to a library call or to the twin.  Each
 wrapper counts its launches in `.launches`, `KERNEL_LAUNCHES` counts them
 by kernel (the names of KERNELS) and `KERNEL_SHAPES` by kernel and
-shape.
+shape.  Counters (trace.py): "chol.plan.factor_<plan>" and
+"chol.plan.solve_<plan>", one a call, by the plan that ran.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import collections
 
 import torch
 
+from .. import trace
 from .._build import check_launch, kernels
 
 # Largest shared-memory plan one block may use on Hopper (227 KB).
@@ -367,6 +369,7 @@ def cholesky_upper(M: torch.Tensor) -> torch.Tensor:
     cholesky_upper.launches += 1
     if isinstance(gplan, GridPlan):
         plan = "wide"
+    trace.count("chol.plan.factor_" + plan)
     name = KERNELS["factor", plan, M.dtype]
     KERNEL_LAUNCHES[name] += 1
     KERNEL_SHAPES[name, B, n, None] += 1
@@ -419,6 +422,7 @@ def cholesky_solve(R: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                    int(f64), _stream())
     check_launch("qp_chol_solve", rc)
     cholesky_solve.launches += 1
+    trace.count("chol.plan.solve_" + plan)
     name = solve_kernel(plan, k, R.dtype)
     KERNEL_LAUNCHES[name] += 1
     KERNEL_SHAPES[name, B, n, k] += 1

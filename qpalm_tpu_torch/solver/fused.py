@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import constants as C
+from .. import trace
 from .._build import check_launch, kernels
 from ..linalg.chol import SMEM_LIMIT, cholesky_upper_plain
 from ..precision import full_f32_matmul
@@ -562,13 +563,22 @@ def fused_palm_plain(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
     return FusedState(nst, mst, sc)
 
 
+def _check_cuda_f32(tensors):
+    """Refuse any input of the kernel that is not a CUDA float32 tensor."""
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_cuda:
+            raise ValueError("fused_palm: every input must be a CUDA "
+                             f"float32 tensor, got {t.dtype} on {t.device}")
+
+
 def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
                s: Settings, qa_panel: int = -2) -> FusedState:
     """Run T P-ALM iterations on scaled f32 data: the plain twin for CPU
     tensors, the CUDA kernel (one launch) for CUDA tensors, in the memory
     tier `qa_panel` selects (-2 from the shape, 0 on chip, > 0 streaming).
     `fused_palm.launches` counts launches of either tier,
-    `fused_palm.stream_launches` those of the streaming tier.  While
+    `fused_palm.stream_launches` those of the streaming tier, as does the
+    counter "k1.stream_launches" (trace.py).  While
     `fused_palm.events` is a list, each launch appends to it the CUDA
     events recorded just before and just after it.  While
     `fused_palm.profile` is a list, each launch appends an int64 tensor of
@@ -583,10 +593,7 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
     if data.Q.device.type == "cpu":
         return fused_palm_plain(data, scal, st, T, s, stream)
     tensors = (*data[:5], scal.Dinv, scal.Einv, scal.cinv, *st)
-    for t in tensors:
-        if t.dtype != torch.float32 or not t.is_cuda:
-            raise ValueError("fused_palm: every input must be a CUDA "
-                             f"float32 tensor, got {t.dtype} on {t.device}")
+    _check_cuda_f32(tensors)
     shapes = [(B, n, n), (B, m, n), (B, n), (B, m), (B, m), (B, n), (B, m),
               (B,), (B, _N_ROWS, n), (B, _M_ROWS, m), (B, _SC_ROWS)]
     if [tuple(t.shape) for t in tensors] != shapes:
@@ -634,8 +641,16 @@ def fused_palm(data: QPData, scal: ScalingInfo, st: FusedState, T: int,
             events[-1][1].record()
     check_launch("qp_fused_palm", rc)
     fused_palm.launches += 1
-    fused_palm.stream_launches += int(stream)
+    if stream:
+        _count_stream_launch()
     return out
+
+
+def _count_stream_launch():
+    """One launch of the streaming tier, in `fused_palm.stream_launches`
+    and in the counter "k1.stream_launches" (trace.py)."""
+    fused_palm.stream_launches += 1
+    trace.count("k1.stream_launches")
 
 
 fused_palm.launches = 0

@@ -84,14 +84,29 @@ def test_stream_twin_matches_reference_stream_kernel(case):
     assert np.max(np.abs(smem[0] - got[0])) < 1e-4
 
 
-def test_stream_order_differs_from_on_chip_order():
+def _osqp_probs(n, count, seed):
+    """`count` problems of OSQP's random QP class at n, m = 10 n (the
+    benchmark's generator, portbench/reference/generators)."""
+    from portbench.reference.generators import osqp_random_qp
+
+    cfg = dict(n=n, m=10 * n, density=0.15, alpha=1e-2)
+    return osqp_random_qp.problems(cfg, count, seed)
+
+
+@pytest.mark.parametrize("shape", ["m=1.5n", "m=10n"])
+def test_stream_order_differs_from_on_chip_order(shape):
     """The tier switch reaches the assembly: the two orders agree on every
-    status and count but not bit for bit."""
-    probs = _probs(61)[:16]
+    status and count but not bit for bit, at n = 16, m = 24 and on OSQP's
+    random QP class at n = 16, m = 160 (the streaming twin forced where
+    the shape fits on chip); x to f32 rounding."""
+    probs = _probs(61)[:16] if shape == "m=1.5n" else _osqp_probs(16, 16, 7)
     s = _settings(2)
     a, b = _port(probs, s, qa_panel=0), _port(probs, s, qa_panel=8)
+    assert F.pick_tier(16, len(probs[0][3])) == "smem"
+    assert np.array_equal(a[2], b[2])
     assert np.array_equal(a[3], b[3])
     assert not np.array_equal(a[0], b[0])
+    assert np.max(np.abs(a[0] - b[0])) < 1e-4
 
 
 def _expected_tier(family, size):
@@ -148,6 +163,8 @@ def _bit_identical_to_twin(n, m):
 
     if n == 352:
         probs, T, pad = row_problems("randomQP", 352), 5, 8
+    elif m == 10 * n:
+        probs, T, pad = _osqp_probs(n, 32, 905), 40, 8
     else:
         probs = [random_convex_qp(n, m, seed=900 + i, density=0.5)
                  for i in range(32)]
@@ -164,13 +181,15 @@ def _bit_identical_to_twin(n, m):
 @pytest.mark.parametrize("n,m,tier", [
     (16, 24, "convex"), (16, 24, "plain"), (16, 24, "dual"),
     (8, 8, "nonconvex"), (16, 24, "warm"), (160, 160, "convex"),
-    (352, 352, "bits"), (140, 100, "bits")])
+    (352, 352, "bits"), (140, 100, "bits"), (256, 2560, "bits")])
 def test_cuda_stream_kernel_matches_plain_twin(n, m, tier):
     """Every flag of the on-chip tier in the streaming one: proximal or
     plain, dual termination, nonconvex pins, warm start; and launches of a
     few iterations resume exactly.  "bits": kernel = twin bit for bit at
-    n=352 and at n=140, m=100 (4-wide edge tiles, a ragged Cholesky panel
-    of 12 rows, a ragged A panel of 4)."""
+    n=352, at n=140, m=100 (4-wide edge tiles, a ragged Cholesky panel
+    of 12 rows, a ragged A panel of 4) and at n=256, m=2560 (OSQP's random
+    QP class: 19 m-vectors in 48,640 of the block's 58,112 floats, A in
+    panels of 16 rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     if tier == "bits":

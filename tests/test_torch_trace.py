@@ -314,3 +314,109 @@ def test_many_threads_lose_no_span_or_count():
             assert s.parent is None
     assert len({s.request for s in rec.spans}) == threads * per
     assert all(s.start <= s.end for s in rec.spans)
+
+
+class _FakeKernels:
+    """Stands in for the CUDA library: every entry point returns success
+    and launches nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Meta tensors take the wrappers' CUDA path with the kernel library
+    faked: the dispatch and its counters run, nothing is launched."""
+    import contextlib
+
+    from qpalm_tpu_torch.linalg import chol
+    from qpalm_tpu_torch.solver import fused as F
+
+    for mod in (chol, F):
+        monkeypatch.setattr(mod, "kernels", _FakeKernels)
+    monkeypatch.setattr(chol, "_check_cuda", lambda *args: None)
+    monkeypatch.setattr(F, "_check_cuda_f32", lambda tensors: None)
+    monkeypatch.setattr(chol, "_stream", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: SimpleNamespace(cuda_stream=0))
+    return chol, F
+
+
+def _k1_inputs_on_meta(F, n, m):
+    """K1's scaled data, scaling and state of 4 problems at (n, m), made
+    on the CPU and moved to the meta device."""
+    from qpalm_tpu_torch.types import ScalingInfo
+
+    probs = make_problems(4, n, m, seed=5)
+    sd, scal, st = F._prepare(stack_problems(probs, np.float32), bench.S32)
+
+    def meta(tup):
+        return type(tup)(*(t.to("meta") for t in tup))
+    return meta(sd), ScalingInfo(*meta(scal)), meta(st)
+
+
+@pytest.mark.parametrize("on", [True, False])
+def test_k1_counts_its_streaming_launches(fake_card, on):
+    """"k1.stream_launches": one a launch of the streaming tier, none on
+    chip, nothing while tracing is off."""
+    _, F = fake_card
+    sd, scal, st = _k1_inputs_on_meta(F, 16, 160)
+    if on:
+        trace.enable()
+    before = F.fused_palm.stream_launches
+    F.fused_palm(sd, scal, st, 3, bench.S32, qa_panel=8)
+    F.fused_palm(sd, scal, st, 3, bench.S32, qa_panel=8)
+    F.fused_palm(sd, scal, st, 3, bench.S32, qa_panel=0)
+    assert F.fused_palm.stream_launches == before + 2
+    assert trace.drain().counters == ({"k1.stream_launches": 2} if on
+                                      else {})
+
+
+@pytest.mark.parametrize("B,n,factor,solve", [
+    (128, 256, "global", "global"),   # the polish at n = 256: past smem
+    (512, 104, "smem", "panel"),      # the polish at rqp100's padded n
+    (64, 480, "global", "global"),
+    (2, 1024, "wide", "global")])     # the grid factor: few matrices
+def test_chol_counts_the_plan_each_call_took(fake_card, B, n, factor, solve):
+    """"chol.plan.factor_<plan>" and "chol.plan.solve_<plan>": the plans
+    linalg.chol picked for the polish's f32 factor and identity solve,
+    one a call; nothing while tracing is off."""
+    chol, _ = fake_card
+    M = torch.empty((B, n, n), dtype=torch.float32, device="meta")
+    chol.cholesky_solve(chol.cholesky_upper(M), M)
+    assert trace.drain().counters == {}
+    trace.enable()
+    R = chol.cholesky_upper(M)
+    chol.cholesky_solve(R, M)
+    chol.cholesky_solve(R, M)
+    assert trace.drain().counters == {f"chol.plan.factor_{factor}": 1,
+                                      f"chol.plan.solve_{solve}": 2}
+
+
+@pytest.mark.cuda
+def test_counters_on_the_card():
+    """The same counters from the kernels' own launches on a card: the
+    streaming K1 at n = 256, m = 2560 and the polish's factor and
+    identity solve at (128, 256)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from qpalm_tpu_torch.linalg import chol
+    from qpalm_tpu_torch.solver import fused as F
+
+    probs = make_problems(2, 256, 2560, seed=9)
+    data = stack_problems(probs, np.float32, device="cuda")
+    trace.enable()
+    F.solve_batch_fused(data, bench.S32.replace(max_iter=2))
+    M = torch.eye(256, device="cuda").expand(128, 256, 256).contiguous()
+    chol.cholesky_solve(chol.cholesky_upper(M), M)
+    torch.cuda.synchronize()
+    counters = {k: v for k, v in trace.drain().counters.items()
+                if not k.startswith("build.")}  # a first call builds
+    assert counters == {"k1.stream_launches": 1,
+                        "chol.plan.factor_global": 1,
+                        "chol.plan.solve_global": 1}
