@@ -17,7 +17,8 @@ from the rep's problem lists on:
                5e-5, max_iter 96, scaling 2, delta 10, unscaling
     polish     polish_device.polish_batch at 1e-6 (kernels K2a, K2b):
                refine_iters 2, second_round_k 64, seed_guard "norm", f64
-               residuals, accept_viol 1
+               residuals, accept_viol 1; from m n^2 >= 2^24 it ends
+               by correcting its rejected lanes (`correct_rejected`)
     flag_fetch the ok flags to the host (the wait for the round's device
                work)
 

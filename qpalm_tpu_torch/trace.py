@@ -106,6 +106,12 @@ def disable() -> None:
     _on = False
 
 
+def is_on() -> bool:
+    """Whether spans and counters are being recorded: a caller whose count
+    costs work (a read from the device) computes it only then."""
+    return _on
+
+
 def new_request() -> Optional[int]:
     """A fresh request id to hand to the spans of one request on several
     threads (None while tracing is off)."""

@@ -116,6 +116,36 @@ def test_a_round_without_an_id_starts_a_request_and_counts_lanes():
     assert rec.counters["rescue.lanes"] == 8
 
 
+@pytest.mark.parametrize("on", [True, False])
+def test_correction_spans_and_counts_inside_the_polish(monkeypatch, on):
+    """With the shape gate forced open, a round's polish ends with the
+    span "polish.correct" under "enqueue.polish", and counts the rejected
+    lanes it polished again and those it certified (OSQP's random QP
+    class at n = 48, m = 480, where the polish rejects lanes); off,
+    nothing is recorded."""
+    from portbench.reference.generators import osqp_random_qp
+    from qpalm_tpu_torch import polish_device
+
+    monkeypatch.setattr(polish_device, "CORRECT_MIN_MN2", 0)
+    probs = osqp_random_qp.problems(
+        dict(n=48, m=480, density=0.15, alpha=0.01), 16, 1)
+    if on:
+        trace.enable()
+    ok = bench._round(probs, torch.device("cpu"), False)[0]
+    rec = trace.drain()
+    if not on:
+        assert rec.spans == [] and rec.counters == {}
+        return
+    (polish,) = [s for s in rec.spans if s.name == "enqueue.polish"]
+    assert [s.name for s in _children(rec.spans, polish)] == [
+        "polish.round1", "polish.second_round", "polish.correct"]
+    lanes = rec.counters["polish.correct.lanes"]
+    certified = rec.counters["polish.correct.certified"]
+    # every lane is among the worst 64, so every rejected lane is retried
+    assert 1 <= certified <= lanes
+    assert lanes - certified == int((~ok).sum())
+
+
 def test_stack_counts_the_bytes_it_pins(monkeypatch):
     """"stack.pinned_bytes": the bytes of the stacks allocated
     page-locked, nothing for a stack that is not.  An allocator that
