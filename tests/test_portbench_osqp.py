@@ -20,6 +20,7 @@ from portbench.metrics import k1_stream_roofline, k2_polish_roofline
 from portbench.reference import roofline, roofline_stream
 from portbench.reference.generators import osqp_random_qp
 from qpalm_tpu_torch import baseline_c, bench
+import torch_support  # noqa: F401
 
 ROOT = harness.ROOT
 CFG = json.loads((ROOT / "portbench/configs/osqp_randomqp_n256.json")
@@ -120,7 +121,6 @@ import json, sys
 sys.path.insert(0, {str(ROOT)!r})
 from pathlib import Path
 import torch
-torch.set_num_threads(2)
 from portbench import harness
 {_FAULT if fault else ""}
 r = harness.run(harness.Cell({TINY!r}, root=Path({str(root)!r})), {seed},

@@ -10,7 +10,6 @@ tests/test_torch_core.py).  At float32: equal statuses and counts, |dx| <
 1e-4 and |dy| < 1e-3 (tests/test_fused.py:41-57), on a well-conditioned
 problem (the basic QP at f32 is chaotic: SKILL.md, parity gotchas)."""
 
-import dataclasses
 import io
 from contextlib import redirect_stdout
 
@@ -23,6 +22,7 @@ from helpers import kkt_check, random_convex_qp
 from qpalm_tpu_torch import QPALM, Settings, solve
 from qpalm_tpu_torch import constants as C
 from qpalm_tpu_torch.validate import ValidationError, validate_settings
+from torch_support import _js
 
 # tests/test_basic_qp.py:24-33
 N, M = 4, 5
@@ -46,17 +46,11 @@ def base_settings(**kw):
                               verbose=False), **kw})
 
 
-def _jax_settings(s):
-    import qpalm_tpu
-
-    return qpalm_tpu.Settings(**dataclasses.asdict(s))
-
-
 def reference(prob, s, x0=None, y0=None):
     """qpalm_tpu.solve on the same inputs."""
     import qpalm_tpu
 
-    return qpalm_tpu.solve(*prob, settings=_jax_settings(s), x0=x0, y0=y0)
+    return qpalm_tpu.solve(*prob, settings=_js(s), x0=x0, y0=y0)
 
 
 def _scaled(a, b):
@@ -202,7 +196,7 @@ def test_nonconvex_matches_reference(n):
     prob = _indefinite(n, seed=40 + n)
     s = base_settings(nonconvex=True)
     solver = QPALM(*prob, settings=s, device="cpu")
-    ref_solver = qpalm_tpu.QPALM(*prob, settings=_jax_settings(s))
+    ref_solver = qpalm_tpu.QPALM(*prob, settings=_js(s))
     assert np.isfinite(ref_solver._gamma_override)
     assert solver.settings.proximal and solver.settings.nonconvex
     assert abs(solver._gamma_override - ref_solver._gamma_override) <= \
@@ -341,7 +335,7 @@ def test_bad_settings_rejected_as_reference(kw):
         QPALM(*BASIC, settings=Settings(**kw), device="cpu")
     jax_validate = pytest.importorskip("qpalm_tpu.validate")
     with pytest.raises(jax_validate.ValidationError):
-        jax_validate.validate_settings(_jax_settings(Settings(**kw)))
+        jax_validate.validate_settings(_js(Settings(**kw)))
 
 
 def test_good_settings_pass():

@@ -18,6 +18,7 @@ from qpalm_tpu_torch.batch import (
     BatchResult, _fused_eligible, bucket_indices, solve_batch, solve_many)
 from qpalm_tpu_torch.types import Settings
 from qpalm_tpu_torch.workloads import boxqp
+import torch_support  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 S32 = dict(dtype="float32", eps_abs=1e-4, eps_rel=1e-4, max_iter=100,

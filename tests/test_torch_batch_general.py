@@ -8,8 +8,6 @@ tests/test_torch_core.py: at float64 equal statuses and iteration counts,
 |dx| <= 1e-8 and |dy| <= 1e-7 scaled by max(1, |x|); at float32 equal
 statuses and counts, |dx| < 1e-4 and |dy| < 1e-3."""
 
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -18,6 +16,7 @@ from qpalm_tpu_torch import constants as C
 from qpalm_tpu_torch.batch import (_fused_eligible, solve_batch,
                                    solve_batch_escalate, solve_many)
 from qpalm_tpu_torch.types import Settings
+from torch_support import _js, _scaled
 
 PROBS = [random_convex_qp(5 + i % 8, 9 + i % 5, seed=500 + i, density=0.6)
          for i in range(12)]
@@ -25,25 +24,15 @@ S32 = dict(dtype="float32", eps_abs=1e-4, eps_rel=1e-4, max_iter=100,
            scaling=2, max_refine=0, delta=10.0, verbose=False)
 
 
-def _jsettings(s):
-    import qpalm_tpu
-
-    return qpalm_tpu.Settings(**dataclasses.asdict(s))
-
-
 def _reference(probs, s, **kw):
     from qpalm_tpu.batch import solve_batch as jsolve
 
-    return [np.asarray(a) for a in jsolve(probs, _jsettings(s), **kw)]
+    return [np.asarray(a) for a in jsolve(probs, _js(s), **kw)]
 
 
 def _port(probs, s=None, **kw):
     return [a.cpu().numpy() for a in solve_batch(probs, s, device="cpu",
                                                  **kw)]
-
-
-def _scaled(a, b):
-    return np.abs(a - b) / np.maximum(1.0, np.abs(a))
 
 
 def _match(ref, got, f64=True):
@@ -163,7 +152,7 @@ def test_solve_batch_escalate_matches_reference(use_fused):
     s = Settings(**{**S32, "max_iter": 12, "use_fused": use_fused})
     first = _port(PROBS, s)
     assert np.any(first[2] != C.QPALM_SOLVED)
-    ref = [np.asarray(a) for a in jesc(PROBS, _jsettings(s))]
+    ref = [np.asarray(a) for a in jesc(PROBS, _js(s))]
     got = [a.numpy() for a in solve_batch_escalate(PROBS, s, device="cpu")]
     assert got[0].dtype == np.float32
     assert np.all(got[2] == C.QPALM_SOLVED)
@@ -179,7 +168,7 @@ def test_solve_many_escalate_matches_reference():
     from qpalm_tpu.batch import solve_many as jmany
 
     s = Settings(**{**S32, "max_iter": 12, "use_fused": "never"})
-    ref = jmany(PROBS, _jsettings(s), escalate=True)
+    ref = jmany(PROBS, _js(s), escalate=True)
     got = solve_many(PROBS, s, escalate=True, device="cpu")
     assert np.array_equal(got.status, ref.status)
     assert np.array_equal(got.iterations, ref.iterations)

@@ -15,6 +15,7 @@ from qpalm_tpu_torch.batch import _PAD_BOUND, pad_problem, stack_problems
 from qpalm_tpu_torch.scaling import scale_data
 from qpalm_tpu_torch.types import QPData, qpdata_from_numpy
 from qpalm_tpu_torch.workloads import make_problems
+import torch_support  # noqa: F401
 
 
 def _mixed_problems():

@@ -20,6 +20,7 @@ from qpalm_tpu_torch.parallel.block_tridiag import (block_tridiag_error,
                                                     thomas_solve)
 from qpalm_tpu_torch.workloads import (SequentialMPC, mpc_chain,
                                        mpc_stage_permutation)
+from torch_support import _cuda
 
 
 def _random_spd_tridiag(S, nb, seed=0):
@@ -212,12 +213,6 @@ def test_stage_block_must_divide_n():
 
         solve_batch([p], Settings(factorization_method=C.FACTORIZE_STAGE,
                                   stage_block=nb), device="cpu")
-
-
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    return torch.device("cuda")
 
 
 @pytest.mark.cuda

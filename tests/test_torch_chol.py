@@ -10,18 +10,13 @@ import torch
 from qpalm_tpu_torch.linalg import chol
 from qpalm_tpu_torch.linalg.chol import (cholesky_solve, cholesky_solve_plain,
                                          cholesky_upper, cholesky_upper_plain)
+from torch_support import _cuda
 
 
 def _spd_batch(B, n, seed=0, dtype=np.float32):
     rng = np.random.default_rng(seed)
     M = rng.standard_normal((B, n, n)).astype(dtype)
     return M @ np.transpose(M, (0, 2, 1)) + n * np.eye(n, dtype=dtype)
-
-
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    return torch.device("cuda")
 
 
 @pytest.mark.parametrize("n", [8, 16, 64])

@@ -55,6 +55,7 @@ from qpalm_tpu_torch._build import check_launch
 from qpalm_tpu_torch.linalg import chol
 from qpalm_tpu_torch.linalg.chol import (CLUSTER_TILE, cholesky_solve_plain,
                                          cholesky_upper_plain)
+from torch_support import _cuda
 
 TILE = CLUSTER_TILE
 
@@ -852,11 +853,6 @@ def test_warp_solve_columns_at_odd_n_are_bit_identical(n, k):
     got = np.stack([_solve_warp(R.numpy(), b[:, :, c]) for c in range(k)],
                    -1)
     assert np.array_equal(got, want)
-
-
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
 
 
 @pytest.mark.cuda

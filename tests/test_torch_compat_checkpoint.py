@@ -13,6 +13,7 @@ from qpalm_tpu_torch import constants as C
 from qpalm_tpu_torch.checkpoint import (load_batch, load_solution, save_batch,
                                         save_solution)
 from qpalm_tpu_torch.compat import Qpalm
+import torch_support  # noqa: F401
 
 # the reference python demo (interfaces/python/qpalm_python_demo.py)
 DEMO_Q = sp.csc_matrix((np.array([1.0, -1.0, -1.0, 2.0]),

@@ -23,6 +23,7 @@ from qpalm_tpu_torch import constants as C
 from qpalm_tpu_torch.solver import core
 from qpalm_tpu_torch.types import (ScalingInfo, Settings, qpdata_from_numpy,
                                    solverstate_from_numpy)
+from torch_support import _scaled
 
 # tests/test_basic_qp.py:24-33
 N, M = 4, 5
@@ -81,10 +82,6 @@ def _reference(data, s):
 def _port(data, s):
     final, x, y, obj = core.full_solve(qpdata_from_numpy(*data, "cpu"), s)
     return final, x.numpy(), y.numpy(), obj.numpy()
-
-
-def _scaled(a, b):
-    return np.abs(a - b) / np.maximum(1.0, np.abs(a))
 
 
 def _match(ref, got, f64=True):

@@ -11,6 +11,7 @@ import torch
 
 from qpalm_tpu_torch import constants as C
 from qpalm_tpu_torch.linalg import dense as TD
+import torch_support  # noqa: F401
 
 
 def _jax_dense():

@@ -33,6 +33,7 @@ import torch
 
 from qpalm_tpu_torch import Settings
 from qpalm_tpu_torch.diff import active_rows, solve_diff
+import torch_support  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 S = Settings(eps_abs=1e-10, eps_rel=1e-10, verbose=False, scaling=0)

@@ -16,6 +16,7 @@ from qpalm_tpu_torch.batch import (
 from qpalm_tpu_torch.solver import fused as F
 from qpalm_tpu_torch.solver.nonconvex import batch_gamma_pins
 from qpalm_tpu_torch.types import Settings
+from torch_support import _js, _settings
 
 B = 128  # the reference kernel takes whole 128-lane blocks
 
@@ -34,12 +35,6 @@ PRIMAL_INFEASIBLE = _primal_infeasible(10)
 # zero Hessian, free variable, descending objective (test_infeasibility.py:64)
 DUAL_INFEASIBLE = (np.zeros((1, 1)), np.zeros((1, 1)), np.array([-1.0]),
                    np.array([-1e30]), np.array([1e30]))
-
-
-def _settings(scaling=2, **kw):
-    base = dict(dtype="float32", eps_abs=1e-4, eps_rel=1e-4, max_iter=100,
-                scaling=scaling, max_refine=0, delta=10.0)
-    return Settings(**{**base, **kw})
 
 
 def _nonconvex_family():
@@ -213,70 +208,58 @@ def test_plain_twin_chunked_keeps_certificates():
         assert torch.equal(a, b)
 
 
-def test_out_of_slice_features_raise():
-    """What K1 does not take now routes to the general loop and matches
-    the reference's general loop at the f32 bar: use_fused='never',
-    refinement, a time limit, a shape past K1's streaming tier, and the
-    f64 escalation (solve_many and solve_batch_escalate), FACTORIZE_KKT
-    FACTORIZE_CG and FACTORIZE_STAGE (block Thomas, stage_block 4 of
-    n_pad 8).  A negative chunk raises."""
-    pytest.importorskip("jax")
-    import dataclasses
-
-    import qpalm_tpu
-    from qpalm_tpu import batch as jbatch
-
-    def ref(fn, probs, s, **kw):
-        return fn(probs, qpalm_tpu.Settings(**dataclasses.asdict(s)), **kw)
-
-    probs = [random_convex_qp(4, 6, seed=1)]
-    for kw in (dict(use_fused="never"), dict(max_refine=2),
-               dict(time_limit=10.0)):
-        s = _settings(2, **kw)
-        got, want = solve_batch(probs, s, device="cpu"), \
-            ref(jbatch.solve_batch, probs, s)
-        assert np.array_equal(got.status.numpy(), np.asarray(want.status))
-        assert np.array_equal(got.iterations.numpy(),
-                              np.asarray(want.iterations))
-        assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
-    wide = [random_convex_qp(360, 8, seed=2)]
-    s = _settings(2, max_iter=2)
-    got, want = solve_batch(wide, s, device="cpu"), \
-        ref(jbatch.solve_batch, wide, s)
-    assert np.array_equal(got.status.numpy(), np.asarray(want.status))
-    assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
-    s = _settings(2, max_iter=5, use_fused="never")
-    many = solve_many(probs, s, escalate=True, device="cpu")
-    want = ref(jbatch.solve_many, probs, s, escalate=True)
-    assert np.array_equal(many.status, want.status)
-    assert np.array_equal(many.iterations, want.iterations)
-    esc = solve_batch_escalate(probs, s, device="cpu")
-    want = ref(jbatch.solve_batch_escalate, probs, s)
-    assert np.array_equal(esc.status.numpy(), np.asarray(want.status))
-    assert np.abs(esc.x.numpy() - np.asarray(want.x)).max() < 1e-4
-    s = _settings(2, factorization_method=C.FACTORIZE_KKT)
-    got, want = solve_batch(probs, s, device="cpu"), \
-        ref(jbatch.solve_batch, probs, s)
-    assert np.array_equal(got.status.numpy(), np.asarray(want.status))
-    assert np.array_equal(got.iterations.numpy(),
-                          np.asarray(want.iterations))
-    assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
+# the routes K1 does not take, each to the general loop, with the settings
+# that send it there
+OUT_OF_SLICE = {
+    "use_fused_never": dict(use_fused="never"),
+    "refinement": dict(max_refine=2),
+    "time_limit": dict(time_limit=10.0),
+    "n_pad_360": dict(max_iter=2),
+    "solve_many_escalate": dict(max_iter=5, use_fused="never"),
+    "solve_batch_escalate": dict(max_iter=5, use_fused="never"),
+    "kkt": dict(factorization_method=C.FACTORIZE_KKT),
     # CG runs the general loop (K1 never takes it), as the reference's
     # vmapped CG does
-    s = _settings(2, factorization_method=C.FACTORIZE_CG)
-    got, want = solve_batch(probs, s, device="cpu"), \
-        ref(jbatch.solve_batch, probs, s)
+    "cg": dict(factorization_method=C.FACTORIZE_CG),
+    # block Thomas, stage_block 4 of n_pad 8
+    "stage": dict(factorization_method=C.FACTORIZE_STAGE, stage_block=4),
+}
+
+
+@pytest.mark.parametrize("route", list(OUT_OF_SLICE))
+def test_out_of_slice_route_matches_reference(route):
+    """What K1 does not take routes to the general loop and matches the
+    reference's general loop at the f32 bar: use_fused='never',
+    refinement, a time limit, a shape past K1's streaming tier, the f64
+    escalation (solve_many and solve_batch_escalate), FACTORIZE_KKT,
+    FACTORIZE_CG and FACTORIZE_STAGE."""
+    pytest.importorskip("jax")
+    from qpalm_tpu import batch as jbatch
+
+    s = _settings(2, **OUT_OF_SLICE[route])
+    probs = [random_convex_qp(360, 8, seed=2) if route == "n_pad_360"
+             else random_convex_qp(4, 6, seed=1)]
+    if route == "solve_many_escalate":
+        many = solve_many(probs, s, escalate=True, device="cpu")
+        want = jbatch.solve_many(probs, _js(s), escalate=True)
+        assert np.array_equal(many.status, want.status)
+        assert np.array_equal(many.iterations, want.iterations)
+        return
+    if route == "solve_batch_escalate":
+        got = solve_batch_escalate(probs, s, device="cpu")
+        want = jbatch.solve_batch_escalate(probs, _js(s))
+    else:
+        got = solve_batch(probs, s, device="cpu")
+        want = jbatch.solve_batch(probs, _js(s))
     assert np.array_equal(got.status.numpy(), np.asarray(want.status))
-    assert np.array_equal(got.iterations.numpy(),
-                          np.asarray(want.iterations))
+    if route not in ("n_pad_360", "solve_batch_escalate"):
+        assert np.array_equal(got.iterations.numpy(),
+                              np.asarray(want.iterations))
     assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
-    s = _settings(2, factorization_method=C.FACTORIZE_STAGE, stage_block=4)
-    got, want = solve_batch(probs, s, device="cpu"), \
-        ref(jbatch.solve_batch, probs, s)
-    assert np.array_equal(got.status.numpy(), np.asarray(want.status))
-    assert np.array_equal(got.iterations.numpy(),
-                          np.asarray(want.iterations))
-    assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
+
+
+def test_negative_chunk_raises():
+    probs = [random_convex_qp(4, 6, seed=1)]
     with pytest.raises(ValueError, match="chunk"):
         F.solve_batch_fused(stack_problems(probs, np.float32), _settings(2),
                             chunk=-1)

@@ -7,7 +7,6 @@ the same route in both packages, and its CG fallback runs the port's
 api.solve on the device asked for (the CPU here)."""
 
 import contextlib
-import dataclasses
 import os
 
 import numpy as np
@@ -21,18 +20,13 @@ from qpalm_tpu_torch import baseline_c, host_sparse
 from qpalm_tpu_torch import constants as C
 from qpalm_tpu_torch.io.qps import load_qps_python
 from qpalm_tpu_torch.linalg import sparse_direct
+from torch_support import _js
 
 pytest.importorskip("jax")
 
 S = Settings(eps_abs=1e-6, eps_rel=1e-6, verbose=False)
 MM_DIR = os.path.join(os.path.dirname(__file__), "..", "benchmarks",
                       "qps_mm")
-
-
-def _js(s):
-    import qpalm_tpu
-
-    return qpalm_tpu.Settings(**dataclasses.asdict(s))
 
 
 def _equal(got, want, cert=False):

@@ -8,6 +8,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch_support  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_MODULES = [

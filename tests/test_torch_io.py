@@ -18,6 +18,7 @@ from qpalm_tpu_torch.io import load_mtx, load_qps, read_settings_file
 from qpalm_tpu_torch.io import native as tnative
 from qpalm_tpu_torch.io.cli import main as cli_main
 from qpalm_tpu_torch.io.qps import QPProblem, load_qps_python, save_qps
+import torch_support  # noqa: F401
 
 pytest.importorskip("jax")
 

@@ -13,10 +13,7 @@ import pytest
 from helpers import kkt_check
 from qpalm_tpu_torch.large import solve_large_dense
 from qpalm_tpu_torch.workloads import random_qp
-
-
-def _scaled(a, b):
-    return np.abs(a - b) / np.maximum(1.0, np.abs(a))
+from torch_support import _scaled
 
 
 def test_pipeline_certifies_batch_as_reference():

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from qpalm_tpu_torch.solver import linesearch as L
+import torch_support  # noqa: F401
 
 B, M = 64, 12
 

@@ -10,6 +10,7 @@ import pytest
 
 from qpalm_tpu_torch.workloads import (SequentialMPC, _chain_dynamics,
                                        mpc_chain, mpc_stage_permutation)
+import torch_support  # noqa: F401
 
 
 @pytest.mark.parametrize("n_masses,horizon", [(1, 3), (4, 8), (6, 20)])

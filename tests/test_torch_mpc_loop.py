@@ -16,6 +16,7 @@ from qpalm_tpu_torch.parallel.mpc_loop import (MPCStageData, from_mpc_chain,
                                                solve_mpc_stage_sharded,
                                                stage_data_from)
 from qpalm_tpu_torch.workloads import mpc_chain, mpc_stage_permutation
+import torch_support  # noqa: F401
 
 Z_BAR = 1e-6
 

@@ -14,6 +14,7 @@ from qpalm_tpu_torch.linalg.dense import norm_inf, norm_two
 from qpalm_tpu_torch.solver.nonconvex import (
     batch_gamma_pins, lobpcg_min_eig, lobpcg_min_eig_np, min_eig_settings)
 from qpalm_tpu_torch.types import Settings
+import torch_support  # noqa: F401
 
 NC = dict(dtype="float32", nonconvex=True, eps_abs=1e-4, eps_rel=1e-4,
           max_iter=400, scaling=2, max_refine=0, delta=10.0)

@@ -25,6 +25,7 @@ import torch
 
 from qpalm_tpu_torch.linalg.chol import cholesky_upper_plain
 from qpalm_tpu_torch.solver import fused as F
+import torch_support  # noqa: F401
 
 NT, WARPS = 256, 8
 

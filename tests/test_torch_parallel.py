@@ -19,6 +19,7 @@ from qpalm_tpu_torch.parallel import (LocalMesh, default_mesh,
                                       solve_batch_sharded)
 
 from helpers import random_convex_qp
+import torch_support  # noqa: F401
 
 SETTINGS = Settings(eps_abs=1e-6, eps_rel=1e-6)
 

@@ -11,6 +11,7 @@ from helpers import random_convex_qp
 from qpalm_tpu_torch.polish_device import polish_batch
 from qpalm_tpu_torch.referee import referee
 from qpalm_tpu_torch.types import qpdata_from_numpy
+import torch_support  # noqa: F401
 
 MODES = [
     dict(seed_guard="norm", refine_iters=3, second_round_k=8),

@@ -11,6 +11,7 @@ from qpalm_tpu_torch import baseline_c, polish
 from qpalm_tpu_torch.batch import stack_problems
 from qpalm_tpu_torch.types import QPData
 from qpalm_tpu_torch.workloads import make_problems
+import torch_support  # noqa: F401
 
 
 def _seeds(probs, eps, solve=None):

@@ -20,6 +20,7 @@ from qpalm_tpu_torch import polish_device as PD
 from qpalm_tpu_torch.batch import stack_problems
 from qpalm_tpu_torch.solver.fused import solve_batch_fused
 from qpalm_tpu_torch.types import QPData
+from torch_support import clean_recorder  # noqa: F401
 
 CLASS = dict(n=48, m=480, density=0.15, alpha=0.01)
 CORRECT = {k: v for k, v in bench.POLISH.items() if k != "refine_iters"}
@@ -36,15 +37,6 @@ def k1_answers(seed, batch=16):
                                  bench.S32)[:2]
         _k1[seed] = d64, x, y
     return _k1[seed]
-
-
-@pytest.fixture(autouse=True)
-def clean_recorder():
-    trace.disable()
-    trace.drain()
-    yield
-    trace.disable()
-    trace.drain()
 
 
 @pytest.mark.parametrize("seed", [1, 7, 11])

@@ -17,6 +17,7 @@ from qpalm_tpu_torch import _build, baseline_c, bench
 from qpalm_tpu_torch.batch import stack_problems
 from qpalm_tpu_torch.types import QPData
 from qpalm_tpu_torch.workloads import make_problems
+import torch_support  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

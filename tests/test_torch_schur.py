@@ -13,6 +13,7 @@ from qpalm_tpu_torch.batch import pad_problem
 from qpalm_tpu_torch.parallel import LocalMesh, solve_constraint_sharded
 from qpalm_tpu_torch.parallel.schur import sharded_schur_matrix
 from qpalm_tpu_torch.workloads import random_qp
+import torch_support  # noqa: F401
 
 SETTINGS = dict(eps_abs=1e-6, eps_rel=1e-6)
 

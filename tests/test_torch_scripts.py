@@ -10,6 +10,7 @@ import os
 from pathlib import Path
 
 import pytest
+import torch_support  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

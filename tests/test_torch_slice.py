@@ -15,6 +15,7 @@ from qpalm_tpu_torch.referee import referee
 from qpalm_tpu_torch.solver.fused import solve_batch_fused
 from qpalm_tpu_torch.types import Settings
 from qpalm_tpu_torch.workloads import make_problems
+import torch_support  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 # the headline settings (bench.py:194-197)

@@ -20,8 +20,6 @@ and held to it here (`SPREAD`) with the x bar unchanged; every other case
 is held to equal counts.  The sparse matvecs themselves are bit-identical
 to the reference's BCOO products (test_matvecs_are_bit_identical)."""
 
-import dataclasses
-
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -33,6 +31,7 @@ from qpalm_tpu_torch import constants as C
 from qpalm_tpu_torch.linalg import sparse as TS
 from qpalm_tpu_torch.linalg.cg import pcg
 from qpalm_tpu_torch.linalg.chol import cholesky_upper
+from torch_support import _js
 
 jax = pytest.importorskip("jax")
 
@@ -64,12 +63,6 @@ def _laplacian_qp():
     q = rng.standard_normal(n)
     u = 1 + rng.random(m)
     return Q, A, q, -u, u
-
-
-def _js(s):
-    import qpalm_tpu
-
-    return qpalm_tpu.Settings(**dataclasses.asdict(s))
 
 
 def _pair(prob, s):

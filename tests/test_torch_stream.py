@@ -13,15 +13,9 @@ from qpalm_tpu_torch import constants as C
 from qpalm_tpu_torch.batch import _not_fused, solve_batch, stack_problems
 from qpalm_tpu_torch.solver import fused as F
 from qpalm_tpu_torch.sweep import ROWS, row_problems
-from qpalm_tpu_torch.types import Settings
+from torch_support import _js, _settings
 
 B = 128  # the reference kernel takes whole 128-lane blocks
-
-
-def _settings(scaling=2, **kw):
-    base = dict(dtype="float32", eps_abs=1e-4, eps_rel=1e-4, max_iter=100,
-                scaling=scaling, max_refine=0, delta=10.0)
-    return Settings(**{**base, **kw})
 
 
 def _probs(seed):
@@ -127,27 +121,29 @@ def test_sweep_rows_are_admitted_with_their_tier(family, size):
     assert F.pick_tier(n_pad, m_pad) == _expected_tier(family, size)
 
 
-def test_shapes_past_the_streaming_rule_raise():
+def test_shape_past_the_streaming_rule_matches_reference():
     """n_pad 360 has no fused plan: solve_batch takes the general loop
-    there, as the reference does, and matches it (two iterations at f32);
-    K1 itself still refuses the shape."""
+    there, as the reference does, and matches it (two iterations at
+    f32)."""
     pytest.importorskip("jax")
-    import dataclasses
-
-    import qpalm_tpu
     from qpalm_tpu.batch import solve_batch as jsolve
 
-    assert F.pick_tier(352, 352) == "stream"
-    assert F.pick_tier(360, 360) is None
     probs = [random_convex_qp(360, 360, seed=3)]
     s = _settings(2, max_iter=2)
     got = solve_batch(probs, s, device="cpu")
-    want = jsolve(probs, qpalm_tpu.Settings(**dataclasses.asdict(s)))
+    want = jsolve(probs, _js(s))
     assert np.array_equal(got.status.numpy(), np.asarray(want.status))
     assert np.array_equal(got.iterations.numpy(),
                           np.asarray(want.iterations))
     assert np.abs(got.x.numpy() - np.asarray(want.x)).max() < 1e-4
-    data = stack_problems(probs, np.float32)
+
+
+def test_shapes_past_the_streaming_rule_raise():
+    """K1 itself refuses n_pad 360, past the streaming tier's last plan at
+    352, and a negative qa_panel."""
+    assert F.pick_tier(352, 352) == "stream"
+    assert F.pick_tier(360, 360) is None
+    data = stack_problems([random_convex_qp(360, 360, seed=3)], np.float32)
     with pytest.raises(NotImplementedError, match="general solver loop"):
         F.solve_batch_fused(data, _settings(2))
     with pytest.raises(ValueError, match="qa_panel"):

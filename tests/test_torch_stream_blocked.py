@@ -25,6 +25,7 @@ from qpalm_tpu_torch import probe
 from qpalm_tpu_torch.linalg.chol import SMEM_LIMIT, cholesky_upper_plain
 from qpalm_tpu_torch.solver import fused as F
 from qpalm_tpu_torch.sweep import ROWS, row_problems
+from torch_support import _cuda
 
 TILE = 8
 
@@ -170,11 +171,6 @@ def test_stream_plan_overlaps_only_dead_scratch():
         assert nbytes == 4 * max(18 * n + 19 * m + 192,
                                  stage + 8 + max(2 * P * n, b * n))
         assert nbytes <= SMEM_LIMIT
-
-
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from qpalm_tpu_torch.finish_np import palm_finish_np
 from qpalm_tpu_torch.polish import polish_batch_np
 from qpalm_tpu_torch.solver.fused import solve_batch_fused
 from qpalm_tpu_torch.types import QPData
+import torch_support  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -19,18 +19,10 @@ from qpalm_tpu_torch import _build, baseline_c, bench, trace
 from qpalm_tpu_torch.batch import stack_problems
 from qpalm_tpu_torch.types import QPData
 from qpalm_tpu_torch.workloads import make_problems
+from torch_support import clean_recorder  # noqa: F401
 
 ROUND_PHASES = ["stack", "copy", "enqueue.k1", "enqueue.polish",
                 "flag_fetch"]
-
-
-@pytest.fixture(autouse=True)
-def clean_recorder():
-    trace.disable()
-    trace.drain()
-    yield
-    trace.disable()
-    trace.drain()
 
 
 def _rescue_lib():

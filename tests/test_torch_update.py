@@ -12,6 +12,7 @@ import torch
 
 from helpers import kkt_check, random_convex_qp
 from qpalm_tpu_torch import QPALM, Settings
+import torch_support  # noqa: F401
 
 S = Settings(eps_abs=1e-6, eps_rel=1e-6, verbose=False)
 PROB = random_convex_qp(5, 8, seed=4)
